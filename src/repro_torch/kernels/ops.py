@@ -1,0 +1,39 @@
+"""Model-layout wrappers over the attention kernels (port of
+``repro.kernels.ops``).
+
+The model keeps activations and the KV cache as ``(B, S, heads, d)``.  The
+reference's wrappers transposed q/k/v (and, for decode, the whole cache)
+into the kernels' head-major layout on every call; here the kernels read
+strided views, so the wrappers only reshape and transpose views and
+allocate the output in the model's layout.
+
+A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
+kernel (each kernel module keeps its launch counter).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention_heads
+
+
+def flash_attention_bhsd(q, k, v, *, causal=True):
+    """q (B, S, H, hd); k/v (B, S, Hkv, hd) -> (B, S, H, hd)."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    flash_attention_heads(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, out=out.transpose(1, 2),
+    )
+    return out
+
+
+def decode_attention_bhsd(q, k, v, lengths):
+    """q (B, 1, H, hd); k/v caches (B, S, Hkv, hd); lengths (B,) ->
+    (B, 1, H, hd).  The cache is read in place through strides."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    q4 = q.reshape(B, Hkv, H // Hkv, hd)
+    out = decode_attention(q4, k.transpose(1, 2), v.transpose(1, 2), lengths)
+    return out.reshape(B, 1, H, hd)

@@ -1,0 +1,43 @@
+"""Plain PyTorch oracles for the attention kernels (port of
+``repro.kernels.ref``, same signatures and layouts).
+
+No tiling, no shared-memory reasoning — just the math, in float32, with the
+result cast back to the input dtype.  They are the plain versions the CUDA
+kernels are held against, and what the wrappers run for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attention_ref(q, k, v, *, causal=True, q_per_kv=1):
+    """Oracle for flash_attention.  q: (BH,S,d), k/v: (BKV,Skv,d); q row
+    ``bh`` reads kv row ``bh // q_per_kv``."""
+    S, d = q.shape[1], q.shape[2]
+    kk = k.repeat_interleave(q_per_kv, dim=0).float()
+    vv = v.repeat_interleave(q_per_kv, dim=0).float()
+    s = torch.einsum("htd,hsd->hts", q.float(), kk) / math.sqrt(d)
+    if causal:
+        mask = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hts,hsd->htd", p, vv).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths, *, q_per_kv=1):
+    """Oracle for decode_attention.  q: (B, H, d) one token per sequence;
+    k/v: (B, Hkv, S, d); lengths: (B,) valid cache length per sequence."""
+    d = q.shape[-1]
+    S = k.shape[2]
+    kk = k.repeat_interleave(q_per_kv, dim=1).float()   # (B, H, S, d)
+    vv = v.repeat_interleave(q_per_kv, dim=1).float()
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), kk) / math.sqrt(d)
+    valid = torch.arange(S, device=q.device)[None, None, :] < lengths[:, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", p, vv).to(q.dtype)

@@ -1,0 +1,61 @@
+"""Unified model API (port of ``repro.models.api``), dense branch.
+
+``build_model(cfg, device=None)`` returns a :class:`Model` whose members are
+plain functions over a param dict, bound to one device.  ``device=None``
+means the card; where no CUDA device exists that raises instead of falling
+back to the CPU (pass ``device="cpu"`` to run the kernels' plain versions).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``.  A CUDA device that is not available raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU"
+        )
+    return dev
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable           # (seed=0) -> params on device
+    forward: Callable        # (params, batch) -> logits
+    prefill: Callable        # (params, batch) -> (logits, cache)
+    decode_step: Callable    # (params, cache, batch) -> (logits, cache), cache in place
+    init_cache: Callable     # (batch_size, max_len) -> cache
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    dev = resolve_device(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)"
+        )
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return T.lm_init(cfg, device=dev, generator=gen)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        forward=lambda p, b: T.lm_forward(p, b, cfg)[0],
+        prefill=lambda p, b: T.lm_forward(p, b, cfg, return_cache=True),
+        decode_step=lambda p, c, b: T.lm_decode_step(p, c, b, cfg),
+        init_cache=lambda bs, ml: T.lm_init_cache(cfg, bs, ml, device=dev),
+    )

@@ -1,0 +1,159 @@
+"""Decoder-only transformer LM, dense family (port of
+``repro.models.transformer``).
+
+Parameters keep the reference's layer-stacked layout (a leading
+``num_layers`` dim on every layer leaf), so a reference param tree converts
+leaf by leaf with no transposes.  The stack is consumed by a Python loop
+(the reference uses ``lax.scan``); PyTorch runs it eagerly.  MoE layers,
+VLM prefixes, windows and the int8 cache are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked param (or cache) tree, as views."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
+                cache_pos=None, causal=True):
+    """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)).  Returns
+    (x, new_cache)."""
+    dt = torch_dtype(cfg.dtype)
+    h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+    attn_out, new_cache = L.attention_apply(
+        p["attn"], h, dtype=dt,
+        rope_theta=cfg.rope_theta, positions=positions, causal=causal,
+        cache=cache, cache_pos=cache_pos,
+    )
+    x = x + attn_out
+    h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    x = x + L.mlp_apply(p["mlp"], h, cfg.mlp, dt)
+    return x, new_cache
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+
+
+def lm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
+    """Random parameters with the reference's shapes and scales, drawn from
+    ``generator`` (a generator on ``device``) straight into ``param_dtype``
+    tensors on the device, one layer at a time: no float32 copy of a
+    bfloat16 model is ever built."""
+    dt = torch_dtype(cfg.param_dtype)
+    n, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    H, Hk, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def normal_(t, scale):
+        return t.normal_(generator=generator).mul_(scale)
+
+    attn = {"wq": empty(n, d, H, hd), "wk": empty(n, d, Hk, hd),
+            "wv": empty(n, d, Hk, hd), "wo": empty(n, H, hd, d)}
+    scales = {"wq": d**-0.5, "wk": d**-0.5, "wv": d**-0.5,
+              "wo": 1.0 / math.sqrt(H * hd)}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros((n, H, hd), dtype=dt, device=device)
+        attn["bk"] = torch.zeros((n, Hk, hd), dtype=dt, device=device)
+        attn["bv"] = torch.zeros((n, Hk, hd), dtype=dt, device=device)
+    mlp = {"w_up": empty(n, d, f), "w_down": empty(n, f, d)}
+    scales.update(w_up=d**-0.5, w_down=f**-0.5)
+    if cfg.mlp == "swiglu":
+        mlp["w_gate"] = empty(n, d, f)
+        scales["w_gate"] = d**-0.5
+    for i in range(n):
+        for name, scale in scales.items():
+            normal_((attn if name in attn else mlp)[name][i], scale)
+    p = {
+        "embed": {"table": normal_(empty(V, d), 0.02)},
+        "layers": {
+            "ln_attn": {"scale": ones(n, d)},
+            "attn": attn,
+            "ln_mlp": {"scale": ones(n, d)},
+            "mlp": mlp,
+        },
+        "final_norm": {"scale": ones(d)},
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": normal_(empty(d, V), d**-0.5)}
+    return p
+
+
+def _logits(p, x, cfg: ModelConfig, dt):
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    head = p["head"] if "head" in p else {"w": p["embed"]["table"].T}
+    return L.unembed(head, x, dt)
+
+
+def lm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
+    """Train/prefill forward: full-sequence causal attention.
+
+    Returns (logits, caches); ``caches`` are stacked (L, B, S, Hkv, hd)
+    ``{k, v}`` when ``return_cache`` (prefill), else None.  (The reference
+    also returns the MoE aux loss, which a dense model does not have.)
+    """
+    dt = torch_dtype(cfg.dtype)
+    x = L.embed(p["embed"], batch["tokens"], dt)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    caches = []
+    for i in range(cfg.num_layers):
+        x, cache = layer_apply(_layer(p["layers"], i), x, cfg, positions=positions)
+        if return_cache:
+            caches.append(cache)
+    stacked = None
+    if return_cache:
+        stacked = {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
+    return _logits(p, x, cfg, dt), stacked
+
+
+def lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device):
+    """Linear KV cache ``{k, v}`` of shape (L, B, max_len, Hkv, hd) in the
+    compute dtype, zero-filled."""
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 kv_quant cache is not ported yet")
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def lm_decode_step(p, cache, batch, cfg: ModelConfig):
+    """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``.
+
+    The new token's K/V are written into ``cache`` in place (the reference
+    donates the cache buffers to the same effect).  Returns
+    (logits (B, 1, V), cache).
+    """
+    dt = torch_dtype(cfg.dtype)
+    x = L.embed(p["embed"], batch["tokens"], dt)
+    pos = torch.as_tensor(batch["pos"], device=x.device)
+    if pos.ndim == 0:
+        positions = pos.reshape(1).to(torch.int32)      # (t=1,) synchronous
+    else:
+        positions = pos[:, None].to(torch.int32)        # (B, t=1) per-slot
+    for i in range(cfg.num_layers):
+        x, _ = layer_apply(
+            _layer(p["layers"], i), x, cfg, positions=positions,
+            cache=_layer(cache, i), cache_pos=pos,
+        )
+    return _logits(p, x, cfg, dt), cache

@@ -1,0 +1,113 @@
+"""Package rules of the port: it never imports JAX or the reference package,
+its entry points run on the card unless asked for the CPU, and its kernel
+wrappers never hand a non-CPU request to the plain version."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_engine_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import sys, repro_torch.serve.engine, repro_torch.models.api;"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'));"
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_light_package_roots():
+    code = (
+        "import sys, repro_torch, repro_torch.core;"
+        "heavy = [m for m in ('repro_torch.models.transformer', 'repro_torch.kernels.ops',"
+        " 'repro_torch.core.device_table') if m in sys.modules];"
+        "print(heavy); sys.exit(1 if heavy else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """device=None means the card: without CUDA it raises, never falls back."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("internlm2-20b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    params = model.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, params, num_slots=1, max_len=8)
+    with pytest.raises(NotImplementedError):
+        build_model(get_reduced("olmoe-1b-7b"), device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["decode", "flash"])
+def test_kernel_wrappers_raise_for_non_cpu_requests(kernel):
+    """A request that is not on the CPU goes to the kernel path, which
+    raises here (no CUDA device, no nvcc) instead of returning the plain
+    result."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+
+    meta = dict(device="meta")
+    q = torch.empty(2, 1, 8, 32, **meta)
+    kv = torch.empty(2, 16, 2, 32, **meta)
+    before = (dec.launches, fla.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        if kernel == "decode":
+            ops.decode_attention_bhsd(q, kv, kv, torch.ones(2, dtype=torch.int32, **meta))
+        else:
+            ops.flash_attention_bhsd(q, kv[:, :1], kv[:, :1])
+    assert (dec.launches, fla.launches) == before
+    if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.build([f"{kernel}_attention"])
+
+
+def test_cpu_wrappers_count_no_launches():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 32), np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 8, 2, 32), np.float32))
+    before = dec.launches
+    out = ops.decode_attention_bhsd(q, kv, kv, torch.tensor([3, 8], dtype=torch.int32))
+    assert out.shape == q.shape and dec.launches == before
