@@ -8,18 +8,24 @@ Run from the repository root with no arguments::
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving shapes, float32 and bfloat16, and time kernel, plain version and
-   the ``scaled_dot_product_attention`` yardstick;
-4. model check: internlm2-20b at full width cut to 2 layers, float32
-   weights, prefill + 4 per-slot decode steps with the kernels on the card
-   against the plain path on the CPU;
-5. serve internlm2-20b at its full published config in bfloat16 (48
-   layers, seeded random weights): 16 greedy requests through ``run()``, a
-   ``step_many(16)`` block against 16 ``step()`` calls from the same state,
-   and one sampled request, with the kernels' launch counters checked;
-6. print the kernel line and the serving line (JSON);
+   serving shapes of internlm2-20b and olmoe-1b-7b (and qwen2-moe's expert
+   width), float32 and bfloat16, and time kernel, plain version and the
+   one-call PyTorch yardstick (``scaled_dot_product_attention``,
+   ``torch.bmm``);
+4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
+   width cut to 2 layers, float32 weights, prefill + 4 per-slot decode
+   steps with the kernels on the card against the plain path on the CPU
+   (MoE routing near-ties between the two are reported, not hidden);
+5. serve internlm2-20b, then olmoe-1b-7b, each at its full published config
+   in bfloat16 (seeded random weights): 16 greedy requests through
+   ``run()``, a profiled window of decode steps, a ``step_many(16)`` block
+   against 16 ``step()`` calls from the same state, a profiled window of
+   1024-token admissions, and one sampled request, with the
+   kernels' launch counters zeroed before and checked after each model;
+6. print the kernel line and one serving line per model (JSON);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
@@ -28,6 +34,7 @@ Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -44,7 +51,39 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
+# grouped matmul: |kernel - plain| <= atol + rtol * |plain|.  float32 keeps
+# 2e-5; a bfloat16 output is one rounding of an O(1) float32 sum, and one
+# bf16 step above |4| is already 3.1e-2, hence the relative term
+GMM_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 1e-2)}
 LOGIT_ATOL = 1e-3  # float32 logits, card vs CPU: sums over d=6144/16384 in another order
+# a token whose k-th and (k+1)-th router probabilities are closer than the
+# card/CPU rounding may take another expert on each side; such a token must
+# have a margin below this, and the positions it reaches are left out of
+# the logit comparison
+NEAR_TIE = 1e-5
+DEVICE = "cuda"  # where every phase runs; a CPU rehearsal of the phases may set "cpu"
+
+# (E, C, d, f, pad, what): pad > 0 reads x and w as strided views of wider
+# tensors with ragged edges
+GMM_CASES = [
+    (64, 8, 2048, 1024, 0, "olmoe decode gate/up"),
+    (64, 8, 1024, 2048, 0, "olmoe decode down"),
+    (64, 160, 2048, 1024, 0, "olmoe 1024-token prefill gate/up"),
+    (60, 8, 2048, 1408, 0, "qwen2-moe decode gate/up"),
+    (3, 5, 40, 24, 0, "small ragged"),
+    (3, 5, 38, 22, 2, "ragged strided views, skinny kernel"),
+    (3, 37, 38, 22, 2, "ragged strided views, tiled kernel"),
+]
+GMM_TIMED = {"decode": (64, 8, 2048, 1024), "prefill": (64, 160, 2048, 1024)}
+# arch -> (B, T, per-slot decode positions); MoE prompts keep B*T <= 256
+# tokens, one dropless group, so a routing near-tie cannot move other
+# tokens' capacity drops
+MODEL_CHECKS = {
+    "internlm2-20b": (2, 200, [200, 150]),
+    "olmoe-1b-7b": (2, 128, [128, 100]),
+    "qwen2-moe-a2.7b": (2, 128, [128, 100]),
+}
+SERVED = ("internlm2-20b", "olmoe-1b-7b")
 
 KERNELS = {
     "decode_attention": {
@@ -54,6 +93,10 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
+    },
+    "grouped_matmul": {
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:27",
     },
 }
 
@@ -87,6 +130,7 @@ def max_err(torch, a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
@@ -94,12 +138,12 @@ def decode_case(torch, B, Hkv, qpk, S, d, dtype, lengths, seed):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, dtype)
-    q = torch.randn(B, 1, Hkv * qpk, d, generator=g, device="cuda").to(dt)
-    k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)   # model cache layout
-    v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, 1, Hkv * qpk, d, generator=g, device=DEVICE).to(dt)
+    k = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)   # model cache layout
+    v = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
     got = ops.decode_attention_bhsd(q, k, v, lens)
     want = decode_attention_plain(
         q.reshape(B, Hkv, qpk, d), k.transpose(1, 2), v.transpose(1, 2), lens
@@ -112,17 +156,41 @@ def flash_case(torch, B, H, Hkv, S, d, dtype, causal, seed):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_heads_plain
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, dtype)
-    q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dt)     # model layout
-    k = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)
-    v = torch.randn(B, S, Hkv, d, generator=g, device="cuda").to(dt)
+    q = torch.randn(B, S, H, d, generator=g, device=DEVICE).to(dt)     # model layout
+    k = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)
+    v = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)
     got = ops.flash_attention_bhsd(q, k, v, causal=causal)
     want = flash_attention_heads_plain(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
     ).transpose(1, 2)
     torch.cuda.synchronize()
     return (q, k, v), got, want
+
+
+def gmm_case(torch, E, C, d, f, dtype, seed, pad=0):
+    """x ~ N(0, 1) and w ~ N(0, 1) / sqrt(d), as ``moe_init`` scales them,
+    so outputs are O(1); with ``pad`` both are strided views of wider
+    tensors.  Returns ((x, w), kernel result, plain result)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn(E, C, d + pad, generator=g, device=DEVICE).to(dt)[..., :d]
+    w = (torch.randn(E, d + pad, f + pad, generator=g, device=DEVICE)
+         / d**0.5).to(dt)[:, :d, :f]
+    got = grouped_matmul(x, w)
+    want = grouped_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    return (x, w), got, want
+
+
+def gmm_within(torch, got, want, dtype) -> tuple[float, bool]:
+    """(max |kernel - plain|, whether every element is within GMM_TOL)."""
+    atol, rtol = GMM_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * want.float().abs()).all())
 
 
 def check_kernels(torch) -> dict:
@@ -132,11 +200,16 @@ def check_kernels(torch) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_heads_plain
+    from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
 
-    print(f"tolerances: max |kernel - plain| <= {TOL} (float32 / bfloat16)")
+    print(f"tolerances: attention max |kernel - plain| <= {TOL} (float32 / bfloat16); "
+          f"grouped_matmul |kernel - plain| <= atol + rtol |plain|, (atol, rtol) = {GMM_TOL}")
     full_lengths = [1, 2, 127, 128, 129, 2047, 2048, 5000]  # 1, S and >= S
+    olmoe_lengths = [1, 129, 2048, 5000] * 2
     decode_cases = [
         (8, 8, 6, 2048, 128, dt, full_lengths) for dt in ("bfloat16", "float32")
+    ] + [
+        (8, 16, 1, 2048, 128, dt, olmoe_lengths) for dt in ("bfloat16", "float32")
     ] + [
         (3, 2, 4, 300, 64, dt, [1, 150, 300]) for dt in ("bfloat16", "float32")
     ] + [(2, 1, 8, 100, 32, "float32", [37, 100])]
@@ -149,6 +222,8 @@ def check_kernels(torch) -> dict:
 
     flash_cases = [
         (2, 48, 8, S, 128, dt, True) for S in (512, 1024) for dt in ("bfloat16", "float32")
+    ] + [
+        (1, 16, 16, 1024, 128, dt, True) for dt in ("bfloat16", "float32")  # olmoe, qpk=1
     ] + [
         (2, 48, 8, 512, 128, "bfloat16", False),
         (1, 48, 8, 333, 128, "bfloat16", True),   # a ragged prompt length
@@ -163,6 +238,15 @@ def check_kernels(torch) -> dict:
               f"causal={causal}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"flash_attention disagrees with its plain version: {err}")
 
+    for i, (E, C, d, f, pad, what) in enumerate(GMM_CASES):
+        for dt in ("bfloat16", "float32"):
+            _, got, want = gmm_case(torch, E, C, d, f, dt, seed=200 + i, pad=pad)
+            err, ok = gmm_within(torch, got, want, dt)
+            print(f"grouped_matmul ({E},{C},{d})x({E},{d},{f}) {dt} {what}"
+                  f"{' (row pad ' + str(pad) + ')' if pad else ''}: max_abs_err={err:.3g}, "
+                  f"within (atol, rtol)={GMM_TOL[dt]}: {ok}")
+            check(ok, f"grouped_matmul disagrees with its plain version: {err}")
+
     records = {}
     # decode at the serving shape, whole cache valid (the 2048-position bound)
     B, Hkv, qpk, S, d = 8, 8, 6, 2048, 128
@@ -172,7 +256,7 @@ def check_kernels(torch) -> dict:
     nbytes = 2 * q.numel() * es + 2 * int(lens.sum()) * Hkv * d * es + lens.numel() * 4
     flops = 4 * int(lens.sum()) * H * d
     q4, kt, vt = q.reshape(B, Hkv, qpk, d), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    mask = (torch.arange(S, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)   # (B, H, 1, d)
     records["decode_attention"] = dict(
         max_abs_err=max_err(torch, got, want),
@@ -181,6 +265,7 @@ def check_kernels(torch) -> dict:
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kt, vt, attn_mask=mask, enable_gqa=True), 50),
         shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}",
+        library="sdpa",
     )
     records["decode_attention"]["bound_ms"], records["decode_attention"]["bound_by"] = \
         bound(nbytes, flops, "bfloat16")
@@ -198,54 +283,166 @@ def check_kernels(torch) -> dict:
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True), 20),
         shape=f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 causal",
+        library="sdpa",
     )
     records["flash_attention"]["bound_ms"], records["flash_attention"]["bound_by"] = \
         bound(nbytes, flops, "bfloat16")
+
+    # grouped matmul at olmoe's decode gate (the main path's regime: 48
+    # calls per step) and at a 1024-token prefill's gate; each call streams
+    # 268 MB of weights, more than the 50 MB L2, so every call finds w cold
+    for regime, (E, C, d, f) in GMM_TIMED.items():
+        (x, w), got, want = gmm_case(torch, E, C, d, f, "bfloat16", seed=9)
+        nbytes = 2 * (x.numel() + w.numel() + E * C * f)
+        flops = 2 * E * C * d * f
+        rec = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: grouped_matmul(x, w), 20),
+            plain_ms=time_ms(torch, lambda: grouped_matmul_plain(x, w), 10),
+            library_ms=time_ms(torch, lambda: torch.bmm(x, w), 20),
+            shape=f"({E},{C},{d})x({E},{d},{f}) bfloat16",
+            library="torch.bmm",
+        )
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bfloat16")
+        records["grouped_matmul" if regime == "decode" else f"grouped_matmul_{regime}"] = rec
     for name, rec in records.items():
         print(f"{name} timed at {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"{rec['plain_ms']:.4f} ms, {rec['library']} {rec['library_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return records
 
 
-# -- phase 4: model check against the plain path on the CPU ------------------
+# -- phase 4: model checks against the plain path on the CPU -----------------
 
 
-def check_model(torch) -> None:
+class RouteLog:
+    """Records each MoE layer's routing (CPU copies of the float32 probs
+    and the chosen experts) into ``self.calls`` while installed."""
+
+    def __init__(self):
+        self.calls = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(x, router, cfg, tokens_per_group=4096):
+            out = self._route(x, router, cfg, tokens_per_group)
+            if self.calls is not None:
+                self.calls.append((out[0].detach().cpu(), out[2].detach().cpu()))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def routing_diff(calls_card, calls_cpu, k, T):
+    """Compare the card's and the CPU's routing call by call.  Returns the
+    smallest top-k margin (CPU probs), the (sequence, position) of every
+    token whose expert set differs, and the margins of those tokens."""
+    check(len(calls_card) == len(calls_cpu), "card and CPU made different MoE calls")
+    min_margin, flipped, margins = float("inf"), [], []
+    for (_, e_card), (probs, e_cpu) in zip(calls_card, calls_cpu):
+        p = probs.reshape(-1, probs.shape[-1]).sort(dim=-1, descending=True).values
+        margin = p[:, k - 1] - p[:, k]
+        min_margin = min(min_margin, margin.min().item())
+        differ = (e_card.reshape(-1, k).sort(-1).values
+                  != e_cpu.reshape(-1, k).sort(-1).values).any(-1)
+        for n in differ.nonzero().flatten().tolist():
+            flipped.append(divmod(n, T))
+            margins.append(margin[n].item())
+    return min_margin, flipped, margins
+
+
+def check_model(torch, arch: str) -> None:
+    """Phase 4: one config at full width cut to 2 layers, float32, prefill +
+    4 per-slot decode steps on the card against the plain path on the CPU.
+    MoE tokens routed differently on the two sides must be near-ties; the
+    positions they reach (later positions of the same sequence, and that
+    lane's decode steps) are left out of the logit comparison."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products on both sides
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               param_dtype="float32", dtype="float32")
-    gpu, cpu = build_model(cfg), build_model(cfg, device="cpu")
+    k = cfg.moe.top_k if cfg.moe else 0
+    gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg, device="cpu")
     p_gpu = gpu.init(seed=0)
     p_cpu = _tree_to(p_gpu, "cpu")
     rng = np.random.default_rng(0)
-    B, T, max_len = 2, 200, 256
+    B, T, pos0 = MODEL_CHECKS[arch]
+    max_len = T + 56
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
-    lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.cuda()})
-    lc, cc = cpu.prefill(p_cpu, {"tokens": tokens})
-    errs = [max_err(torch, lg.cpu(), lc), max_err(torch, cg["k"].cpu(), cc["k"])]
+    taint = torch.zeros(B, T, dtype=torch.bool)   # positions a routing flip reaches
+    lane_taint = torch.zeros(B, dtype=torch.bool)
+    min_margin, flips, flip_margins = float("inf"), [], []
+    log = RouteLog()
+
+    def both(run_card, run_cpu, t):
+        """Run one call on each side; returns both results and the
+        (sequence, position) of every token routed differently."""
+        nonlocal min_margin
+        with log:
+            log.calls = []
+            out_card = run_card()
+            calls_card, log.calls = log.calls, []
+            out_cpu = run_cpu()
+        if not cfg.moe:
+            return out_card, out_cpu, []
+        m, fl, mg = routing_diff(calls_card, log.calls, k, t)
+        min_margin = min(min_margin, m)
+        flips.extend(fl)
+        flip_margins.extend(mg)
+        return out_card, out_cpu, fl
+
+    (lg, cg), (lc, cc), fl = both(lambda: gpu.prefill(p_gpu, {"tokens": tokens.to(DEVICE)}),
+                                  lambda: cpu.prefill(p_cpu, {"tokens": tokens}), T)
+    for b, t in fl:
+        taint[b, t:] = True
+        lane_taint[b] = True
+    keep = ~taint
+    errs = [max_err(torch, lg.cpu()[keep], lc[keep]),
+            max_err(torch, cg["k"].cpu()[:, keep], cc["k"][:, keep])]
     cache_g, cache_c = gpu.init_cache(B, max_len), cpu.init_cache(B, max_len)
     for name in ("k", "v"):
         cache_g[name][:, :, :T] = cg[name]
         cache_c[name][:, :, :T] = cc[name]
-    pos = np.array([T, 150])  # lane 1 decodes as if its prompt were shorter
+    pos = np.array(pos0)  # lane 1 decodes as if its prompt were shorter
     for _ in range(4):
         step = rng.integers(0, cfg.vocab_size, (B, 1))
-        lg, _ = gpu.decode_step(p_gpu, cache_g, {"tokens": torch.from_numpy(step).cuda(),
-                                                 "pos": torch.from_numpy(pos).cuda()})
-        lc, _ = cpu.decode_step(p_cpu, cache_c, {"tokens": torch.from_numpy(step),
-                                                 "pos": torch.from_numpy(pos)})
-        errs.append(max_err(torch, lg.cpu(), lc))
+        (lg, _), (lc, _), fl = both(
+            lambda: gpu.decode_step(p_gpu, cache_g, {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                     "pos": torch.from_numpy(pos).to(DEVICE)}),
+            lambda: cpu.decode_step(p_cpu, cache_c, {"tokens": torch.from_numpy(step),
+                                                     "pos": torch.from_numpy(pos)}), 1)
+        for b, _ in fl:
+            lane_taint[b] = True
+        if (~lane_taint).any():
+            errs.append(max_err(torch, lg.cpu()[~lane_taint], lc[~lane_taint]))
         pos = pos + 1
-    errs.append(max_err(torch, cache_g["v"].cpu(), cache_c["v"]))
-    print(f"model check internlm2-20b (2 layers, float32, prefill {B}x{T} + 4 decode "
-          f"steps): max |logits card - CPU| per call {[f'{e:.3g}' for e in errs]}, "
-          f"tolerance {LOGIT_ATOL}")
-    check(max(errs) <= LOGIT_ATOL, f"model check: card and CPU logits differ by {max(errs)}")
+    if (~lane_taint).any():
+        errs.append(max_err(torch, cache_g["v"].cpu()[:, ~lane_taint],
+                            cache_c["v"][:, ~lane_taint]))
+    routing = ""
+    if cfg.moe:
+        routing = (f"; routing: smallest top-{k} margin {min_margin:.3g}, tokens whose "
+                   f"experts differ card vs CPU {len(flips)} (margins "
+                   f"{[f'{m:.3g}' for m in flip_margins]}), positions left out "
+                   f"{int(taint.sum())}, lanes left out of decode {int(lane_taint.sum())}")
+    print(f"model check {arch} (2 layers, float32, prefill {B}x{T} + 4 decode steps): "
+          f"max |logits card - CPU| per call {[f'{e:.3g}' for e in errs]}, "
+          f"tolerance {LOGIT_ATOL}{routing}")
+    check(all(m < NEAR_TIE for m in flip_margins),
+          f"model check {arch}: a token routed differently with margin >= {NEAR_TIE}: "
+          f"{flip_margins}")
+    check(max(errs) <= LOGIT_ATOL,
+          f"model check {arch}: card and CPU logits differ by {max(errs)}")
 
 
 def _tree_to(tree, device):
@@ -254,23 +451,26 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-# -- phase 5: serve the full config ------------------------------------------
+# -- phase 5: serve the full configs -----------------------------------------
 
 
-def serve(torch) -> dict:
+def serve(torch, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Request, ServingEngine
 
-    cfg = dataclasses.replace(get_config("internlm2-20b"), param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     eng = ServingEngine(model, params, num_slots=8, max_len=2048)
     ttft, step_s = [], []
     admit, step = eng.admit, eng.step
@@ -293,7 +493,7 @@ def serve(torch) -> dict:
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=64)
             for n in lengths]
 
-    dec.launches = fla.launches = 0          # the main path's run starts here
+    dec.launches = fla.launches = gmm.launches = 0   # this model's run starts here
     t0 = time.perf_counter()
     out = eng.run(reqs)
     torch.cuda.synchronize()
@@ -309,7 +509,7 @@ def serve(torch) -> dict:
              for i, (n, m) in enumerate(zip(rng.integers(64, 1025, 8), [40] * 6 + [14, 9]))]
     for slot, r in enumerate(block):
         eng.admit(r, slot)
-    profile = profile_steps(torch, eng, 4)
+    profile = profile_window(torch, eng.step, 4)
     snap = _snapshot(eng)
     blk = eng.step_many(16)
     got = {r.rid: list(eng.outputs[r.rid]) for r in block}
@@ -322,21 +522,35 @@ def serve(torch) -> dict:
     while any(r is not None for r in eng.slot_req):
         eng.step()
 
+    # a profiled window of 3 admissions of one 1024-token prompt (the
+    # largest of the run), each evicted again: where TTFT goes
+    long_prompt = rng.integers(0, cfg.vocab_size, 1024)
+
+    def admit_long():
+        eng.admit(Request(prompt=long_prompt, max_new_tokens=2, rid=300), 0)
+        eng.evict(300)
+
+    admit_profile = profile_window(torch, admit_long, 3)
+
     sampled = eng.run([Request(prompt=rng.integers(0, cfg.vocab_size, 100),
                                max_new_tokens=8, temperature=0.8, rid=200)])[200]
     check(len(sampled) == 8 and all(0 <= t < cfg.vocab_size for t in sampled),
           f"sampled request: {sampled}")
     torch.cuda.synchronize()
-    launches = {"decode_attention": dec.launches, "flash_attention": fla.launches}
-    admissions = 16 + len(block) + 1
-    check(launches["decode_attention"] == cfg.num_layers * eng.steps_dispatched,
-          f"decode launches {launches['decode_attention']} != 48 x {eng.steps_dispatched} steps")
-    check(launches["flash_attention"] == cfg.num_layers * admissions,
-          f"flash launches {launches['flash_attention']} != 48 x {admissions} admissions")
+    launches = {"decode_attention": dec.launches, "flash_attention": fla.launches,
+                "grouped_matmul": gmm.launches}
+    admissions = 16 + len(block) + 3 + 1
+    L, steps = cfg.num_layers, eng.steps_dispatched
+    expected = {"decode_attention": L * steps, "flash_attention": L * admissions,
+                "grouped_matmul": 3 * L * (steps + admissions) if cfg.moe else 0}
+    check(launches == expected,
+          f"{arch} launches {launches} != {expected} ({L} layers, {steps} steps, "
+          f"{admissions} admissions)")
 
     full = [t for t, n in step_s if n == 8]
     stats = {
         "model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+        "param_bytes": n_bytes,
         "dtype": "bfloat16", "num_slots": 8, "max_len": 2048,
         "init_s": init_s,
         "run_wall_s": wall, "run_tokens": n_tokens, "tokens_per_s": n_tokens / wall,
@@ -347,38 +561,40 @@ def serve(torch) -> dict:
         "decode_step_ms_p50_8_active": 1e3 * float(np.median(full)),
         "decode_step_ms_p90_8_active": 1e3 * float(np.percentile(full, 90)),
         "decode_step_n_8_active": len(full),
-        "steps_dispatched": eng.steps_dispatched, "admissions": admissions,
+        "steps_dispatched": steps, "admissions": admissions,
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": profile,
+        "profile_decode_step": profile,
+        "profile_admission_1024": admit_profile,
     }
     print(f"served {cfg.name}: {n_params / 1e9:.2f} B params, {stats}")
     return stats
 
 
-def profile_steps(torch, eng, n: int) -> dict:
-    """Device time of ``n`` greedy decode steps under ``torch.profiler``:
-    wall time per step, device busy time per step (kernel time summed over
-    the window), the idle share, and the kernels that take the most time."""
+def profile_window(torch, fn, n: int) -> dict:
+    """Device time of ``n`` calls of ``fn`` (decode steps, admissions) under
+    ``torch.profiler``: wall time per call, device busy time per call
+    (kernel time summed over the window), the idle share, and the kernels
+    that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.step()
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    check(busy_us > 0, "the profiler saw no device time in the decode window")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    check(busy_us > 0, "the profiler saw no device time in the window")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return {
-        "steps": n,
-        "wall_ms_per_step": 1e3 * wall / n,
-        "device_busy_ms_per_step": busy_us / 1e3 / n,
+        "calls": n,
+        "wall_ms_per_call": 1e3 * wall / n,
+        "device_busy_ms_per_call": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "top_kernels_ms_per_step": {
+        "top_kernels_ms_per_call": {
             e.key[:80]: e.self_device_time_total / 1e3 / n for e in top},
     }
 
@@ -407,6 +623,13 @@ def _restore(eng, snap):
     eng.slot_req, eng.slot_remaining, eng.outputs = list(slot_req), remaining.copy(), outputs
 
 
+def release(torch) -> None:
+    """Free what a finished phase left on the card (the engine's timing
+    wrappers form a reference cycle, so collect before emptying the cache)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -431,23 +654,40 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     records = check_kernels(torch)
-    check_model(torch)
-    torch.cuda.empty_cache()
-    stats = serve(torch)
+    print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+    for arch in MODEL_CHECKS:
+        t0 = time.perf_counter()
+        check_model(torch, arch)
+        release(torch)
+        print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
+    served = {}
+    for arch in SERVED:
+        t0 = time.perf_counter()
+        served[arch] = serve(torch, arch)
+        release(torch)
+        print(f"serve {arch} took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():
         rec = records[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": stats["launches"][name],
+            "replaces": meta["replaces"],
+            "launches": sum(s["launches"][name] for s in served.values()),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
-        })
+        }
+        if f"{name}_prefill" in records:
+            pre = records[f"{name}_prefill"]
+            entry["prefill"] = {key: pre[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"serve": stats}))
+    for stats in served.values():
+        print(json.dumps({"serve": stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

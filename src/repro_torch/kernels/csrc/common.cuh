@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels.  Plain CUDA C++ with a C
+// Helpers shared by the kernels.  Plain CUDA C++ with a C
 // interface (no PyTorch headers): each kernel source builds into its own
 // shared library, loaded from Python with ctypes.
 #pragma once
@@ -13,7 +13,7 @@ namespace ham {
 // is exactly 0 and never NaN.
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;
 
-// Returned for a head_dim or dtype the kernel was not built for.
+// Returned for a shape or dtype the kernel was not built for.
 constexpr int kUnsupported = -1;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
@@ -64,6 +64,6 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 }  // namespace ham
 
 extern "C" const char* ham_error_string(int err) {
-  if (err == ham::kUnsupported) return "unsupported head_dim, dtype or q_per_kv";
+  if (err == ham::kUnsupported) return "unsupported shape (head_dim, q_per_kv, experts) or dtype";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,11 +1,12 @@
-"""Model-layout wrappers over the attention kernels (port of
-``repro.kernels.ops``).
+"""Model-layout wrappers over the kernels (port of ``repro.kernels.ops``).
 
 The model keeps activations and the KV cache as ``(B, S, heads, d)``.  The
 reference's wrappers transposed q/k/v (and, for decode, the whole cache)
 into the kernels' head-major layout on every call; here the kernels read
 strided views, so the wrappers only reshape and transpose views and
-allocate the output in the model's layout.
+allocate the output in the model's layout.  The MoE layer's dispatched
+tokens carry a group dim, ``(G, E, C, d)``, which the grouped-matmul kernel
+folds into its capacity dim.
 
 A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
 kernel (each kernel module keeps its launch counter).
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_heads
 
@@ -37,3 +39,16 @@ def decode_attention_bhsd(q, k, v, lengths):
     q4 = q.reshape(B, Hkv, H // Hkv, hd)
     out = decode_attention(q4, k.transpose(1, 2), v.transpose(1, 2), lengths)
     return out.reshape(B, 1, H, hd)
+
+
+def grouped_matmul(x, w):
+    """x (G, E, C, d) dispatched tokens; w (E, d, f) expert weights ->
+    (G, E, C, f), the reference model's ``einsum("gecd,edf->gecf")``.
+
+    G folds into the capacity dim, (E, G*C, d), since w has no G: a view when
+    G == 1 (every serving shape), one copy otherwise.  The result is a view
+    of the kernel's (E, G*C, f) output.
+    """
+    G, E, C, d = x.shape
+    out = gmm.grouped_matmul(x.transpose(0, 1).reshape(E, G * C, d), w)
+    return out.view(E, G, C, -1).transpose(0, 1)

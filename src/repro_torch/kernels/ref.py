@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the attention kernels (port of
-``repro.kernels.ref``, same signatures and layouts).
+"""Plain PyTorch oracles for the attention and grouped-matmul kernels (port
+of ``repro.kernels.ref``, same signatures and layouts).
 
 No tiling, no shared-memory reasoning — just the math, in float32, with the
 result cast back to the input dtype.  They are the plain versions the CUDA
@@ -41,3 +41,9 @@ def decode_attention_ref(q, k, v, lengths, *, q_per_kv=1):
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bhsd->bhd", p, vv).to(q.dtype)
+
+
+def grouped_matmul_ref(x, w):
+    """Oracle for grouped_matmul: per-expert batched GEMM.
+    x: (E, C, d), w: (E, d, f) -> (E, C, f), fp32 accumulation."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

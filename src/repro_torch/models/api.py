@@ -1,4 +1,4 @@
-"""Unified model API (port of ``repro.models.api``), dense branch.
+"""Unified model API (port of ``repro.models.api``), dense and MoE branches.
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose members are
 plain functions over a param dict, bound to one device.  ``device=None``
@@ -41,9 +41,9 @@ class Model:
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)"
+            f"family {cfg.family!r} is not ported yet (dense and moe only)"
         )
 
     def init(seed: int = 0):

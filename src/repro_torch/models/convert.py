@@ -16,6 +16,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import torch_dtype
 
 
+#: param leaves the reference keeps in float32 whatever ``param_dtype`` is
+#: (``repro/models/moe.py``: the router, so routing never rounds)
+FLOAT32_LEAVES = frozenset({"router"})
+
+
 def _leaf(a, device, dtype):
     # always a copy: the port writes caches in place, and a reference
     # array's buffer must not change under it
@@ -23,15 +28,16 @@ def _leaf(a, device, dtype):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _convert(tree, device, dtype):
+def _convert(tree, device, dtype, name=None):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
-    return _leaf(tree, device, dtype)
+        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    return _leaf(tree, device, torch.float32 if name in FLOAT32_LEAVES else dtype)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
     """Reference params (numpy leaves) -> port params on ``device``, in
-    ``dtype`` (default ``cfg.param_dtype``)."""
+    ``dtype`` (default ``cfg.param_dtype``); the leaves the reference keeps
+    in float32 (``FLOAT32_LEAVES``) stay float32."""
     return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.param_dtype))
 
 

@@ -1,11 +1,11 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM, dense and MoE families (port of
 ``repro.models.transformer``).
 
 Parameters keep the reference's layer-stacked layout (a leading
 ``num_layers`` dim on every layer leaf), so a reference param tree converts
 leaf by leaf with no transposes.  The stack is consumed by a Python loop
-(the reference uses ``lax.scan``); PyTorch runs it eagerly.  MoE layers,
-VLM prefixes, windows and the int8 cache are not ported yet.
+(the reference uses ``lax.scan``); PyTorch runs it eagerly.  VLM prefixes,
+windows and the int8 cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -29,8 +30,10 @@ def _layer(tree, i: int):
 
 def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
                 cache_pos=None, causal=True):
-    """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)).  Returns
-    (x, new_cache)."""
+    """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)), the MLP being the
+    MoE layer when ``cfg.moe`` is set.  Returns (x, new_cache).  (The
+    reference also returns the MoE aux loss; ``moe_apply`` returns it, and
+    the port has no training step to use it yet.)"""
     dt = torch_dtype(cfg.dtype)
     h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     attn_out, new_cache = L.attention_apply(
@@ -40,8 +43,11 @@ def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     )
     x = x + attn_out
     h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h, cfg.mlp, dt)
-    return x, new_cache
+    if cfg.moe is not None:
+        mlp_out, _ = moe_apply(p["moe"], h, cfg.moe, dt)
+    else:
+        mlp_out = L.mlp_apply(p["mlp"], h, cfg.mlp, dt)
+    return x + mlp_out, new_cache
 
 
 # --------------------------------------------------------------------------
@@ -75,27 +81,55 @@ def lm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
         attn["bq"] = torch.zeros((n, H, hd), dtype=dt, device=device)
         attn["bk"] = torch.zeros((n, Hk, hd), dtype=dt, device=device)
         attn["bv"] = torch.zeros((n, Hk, hd), dtype=dt, device=device)
-    mlp = {"w_up": empty(n, d, f), "w_down": empty(n, f, d)}
-    scales.update(w_up=d**-0.5, w_down=f**-0.5)
-    if cfg.mlp == "swiglu":
-        mlp["w_gate"] = empty(n, d, f)
-        scales["w_gate"] = d**-0.5
+    mlp = {}
+    if cfg.moe is None:
+        mlp = {"w_up": empty(n, d, f), "w_down": empty(n, f, d)}
+        scales.update(w_up=d**-0.5, w_down=f**-0.5)
+        if cfg.mlp == "swiglu":
+            mlp["w_gate"] = empty(n, d, f)
+            scales["w_gate"] = d**-0.5
     for i in range(n):
         for name, scale in scales.items():
             normal_((attn if name in attn else mlp)[name][i], scale)
+    layers = {"ln_attn": {"scale": ones(n, d)}, "attn": attn,
+              "ln_mlp": {"scale": ones(n, d)}}
+    if cfg.moe is None:
+        layers["mlp"] = mlp
+    else:
+        layers["moe"] = _stack(n, lambda: moe_init(d, cfg.moe, dt, device=device,
+                                                   generator=generator))
     p = {
         "embed": {"table": normal_(empty(V, d), 0.02)},
-        "layers": {
-            "ln_attn": {"scale": ones(n, d)},
-            "attn": attn,
-            "ln_mlp": {"scale": ones(n, d)},
-            "mlp": mlp,
-        },
+        "layers": layers,
         "final_norm": {"scale": ones(d)},
     }
     if not cfg.tie_embeddings:
         p["head"] = {"w": normal_(empty(d, V), d**-0.5)}
     return p
+
+
+def _stack(n: int, make):
+    """Stack ``n`` draws of a layer's param tree (``make()``), one layer at a
+    time into preallocated (n, ...) tensors: one layer is the only
+    temporary."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n, *t.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    first = make()
+    out = alloc(first)
+    fill(out, first, 0)
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 def _logits(p, x, cfg: ModelConfig, dt):
@@ -109,7 +143,7 @@ def lm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
 
     Returns (logits, caches); ``caches`` are stacked (L, B, S, Hkv, hd)
     ``{k, v}`` when ``return_cache`` (prefill), else None.  (The reference
-    also returns the MoE aux loss, which a dense model does not have.)
+    also returns the mean MoE aux loss, which serving does not read.)
     """
     dt = torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)

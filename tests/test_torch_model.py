@@ -1,8 +1,8 @@
-"""The port's dense model against the reference, on the reference's own
-parameters: ``params_from_numpy`` of JAX ``lm_init`` params for the reduced
-llama3-405b and internlm2-20b configs; logits for prefill, synchronous
-decode and per-slot decode (atol 1e-4, float32), and the caches each
-returns."""
+"""The port's dense and MoE models against the reference, on the
+reference's own parameters: ``params_from_numpy`` of JAX ``lm_init`` params
+for the reduced llama3-405b, internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b
+configs; logits for prefill, synchronous decode and per-slot decode (atol
+1e-4, float32), and the caches each returns."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +16,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
-ARCHS = ["llama3-405b", "internlm2-20b"]
+ARCHS = ["llama3-405b", "internlm2-20b", "olmoe-1b-7b", "qwen2-moe-a2.7b"]
 ATOL = 1e-4
 
 

@@ -74,40 +74,59 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, params, num_slots=1, max_len=8)
     with pytest.raises(NotImplementedError):
-        build_model(get_reduced("olmoe-1b-7b"), device="cpu")
+        build_model(get_reduced("xlstm-1.3b"), device="cpu")
 
 
-@pytest.mark.parametrize("kernel", ["decode", "flash"])
+def _launch_counts():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    return dec.launches, fla.launches, gmm.launches
+
+
+def _call(kernel, device):
+    """One call of a kernel's model-layout wrapper on ``device``."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device)
+
+    if kernel == "decode_attention":
+        q, kv = t(2, 1, 8, 32), t(2, 16, 2, 32)
+        return ops.decode_attention_bhsd(q, kv, kv, torch.tensor([3, 16], dtype=torch.int32,
+                                                                 device=device))
+    if kernel == "flash_attention":
+        q, kv = t(2, 16, 8, 32), t(2, 16, 2, 32)
+        return ops.flash_attention_bhsd(q, kv, kv)
+    return ops.grouped_matmul(t(1, 4, 8, 32), t(4, 32, 16))
+
+
+KERNELS = ["decode_attention", "flash_attention", "grouped_matmul"]
+KERNEL_IDS = ["decode", "flash", "grouped_matmul"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
 def test_kernel_wrappers_raise_for_non_cpu_requests(kernel):
     """A request that is not on the CPU goes to the kernel path, which
     raises here (no CUDA device, no nvcc) instead of returning the plain
     result."""
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import _build
 
-    meta = dict(device="meta")
-    q = torch.empty(2, 1, 8, 32, **meta)
-    kv = torch.empty(2, 16, 2, 32, **meta)
-    before = (dec.launches, fla.launches)
+    before = _launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        if kernel == "decode":
-            ops.decode_attention_bhsd(q, kv, kv, torch.ones(2, dtype=torch.int32, **meta))
-        else:
-            ops.flash_attention_bhsd(q, kv[:, :1], kv[:, :1])
-    assert (dec.launches, fla.launches) == before
+        _call(kernel, "meta")
+    assert _launch_counts() == before
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc"):
-            _build.build([f"{kernel}_attention"])
+            _build.build([kernel])
 
 
-def test_cpu_wrappers_count_no_launches():
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import ops
-
-    rng = np.random.default_rng(0)
-    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 32), np.float32))
-    kv = torch.from_numpy(rng.standard_normal((2, 8, 2, 32), np.float32))
-    before = dec.launches
-    out = ops.decode_attention_bhsd(q, kv, kv, torch.tensor([3, 8], dtype=torch.int32))
-    assert out.shape == q.shape and dec.launches == before
+@pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
+def test_cpu_wrappers_count_no_launches(kernel):
+    before = _launch_counts()
+    out = _call(kernel, "cpu")
+    assert out.device.type == "cpu" and torch.isfinite(out).all()
+    assert _launch_counts() == before
