@@ -11,19 +11,21 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving shapes of internlm2-20b and olmoe-1b-7b (and qwen2-moe's expert
-   width), float32 and bfloat16, and time kernel, plain version and the
-   one-call PyTorch yardstick (``scaled_dot_product_attention``,
-   ``torch.bmm``);
+   serving shapes of internlm2-20b, olmoe-1b-7b and xlstm-1.3b (and
+   qwen2-moe's expert width), float32 and bfloat16, and time kernel, plain
+   version and, where one exists, the one-call PyTorch yardstick
+   (``scaled_dot_product_attention``, ``torch.bmm``; none computes mLSTM);
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
-   width cut to 2 layers, float32 weights, prefill + 4 per-slot decode
-   steps with the kernels on the card against the plain path on the CPU
-   (MoE routing near-ties between the two are reported, not hidden);
-5. serve internlm2-20b, then olmoe-1b-7b, each at its full published config
-   in bfloat16 (seeded random weights): 16 greedy requests through
-   ``run()``, a profiled window of decode steps, a ``step_many(16)`` block
-   against 16 ``step()`` calls from the same state, a profiled window of
-   1024-token admissions, and one sampled request, with the
+   width cut to 2 layers, and xlstm-1.3b cut to one group of 8 layers,
+   float32 weights, prefill + 4 decode steps with the kernels on the card
+   against the plain path on the CPU (MoE routing near-ties between the two
+   are reported, not hidden; the xLSTM states are compared too);
+5. serve internlm2-20b, olmoe-1b-7b and xlstm-1.3b, each at its full
+   published config in bfloat16 (seeded random weights): 16 greedy requests
+   through ``run()``, a profiled window of decode steps, a ``step_many(16)``
+   block against 16 ``step()`` calls from the same state, a profiled window
+   of 1024-token admissions (one for xlstm-1.3b, whose sLSTM prefill is a
+   host loop of ~150 k small launches), and one sampled request, with the
    kernels' launch counters zeroed before and checked after each model;
 6. print the kernel line and one serving line per model (JSON);
 7. last line: ``{"ok": true, "device": {...}}``.
@@ -83,7 +85,33 @@ MODEL_CHECKS = {
     "olmoe-1b-7b": (2, 128, [128, 100]),
     "qwen2-moe-a2.7b": (2, 128, [128, 100]),
 }
-SERVED = ("internlm2-20b", "olmoe-1b-7b")
+SERVED = ("internlm2-20b", "olmoe-1b-7b", "xlstm-1.3b")
+
+# mLSTM: |kernel - plain| <= atol + rtol |plain| for h and for the final
+# state.  float32 takes tests/test_kernels.py's tolerances for a kernel held
+# against another chunking (the plain version shrinks the chunk to divide S,
+# the kernel masks a ragged tail); a bfloat16 h is one rounding of an O(1)
+# float32 value, one bf16 step above |2| being 1.6e-2, hence the GMM_TOL
+# terms; the state is float32 from the same bf16 inputs on both sides.
+MLSTM_TOL = {"h": {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 1e-2)},
+             "state": {"float32": (5e-3, 1e-2), "bfloat16": (5e-3, 1e-2)}}
+# (B, H, S, dk, dv, chunk, initial state, what); q and k are |N(0, 1)|, so
+# every score is positive and h is a weighted mean of v rows (with signed
+# scores a position whose denominator cancels to ~0 amplifies any rounding
+# without bound); a state comes from the plain version on a 64-token prefix
+MLSTM_CASES = [
+    (1, 4, 1024, 512, 1024, 256, False, "xlstm-1.3b 1024-token admission"),
+    (1, 4, 300, 512, 1024, 256, True, "ragged second chunk (256 + 44)"),
+    (1, 4, 509, 512, 1024, 256, True, "prime length (256 + 253)"),
+    (3, 1, 37, 16, 32, 8, True, "small, BH = 3"),
+]
+XLSTM_CHECK = (8, 2, 300)   # layers (one 7:1 group), batch, prompt: 256 + 44 on the card
+# xLSTM logits, float32 against a float64 run of the same model on the CPU.
+# At full width the model's float32 logits lie a few 1e-3 from float64 and
+# move by as much with the order of sums alone (the chunking), so 1e-3 card
+# vs CPU would test rounding, not the kernel: the card is held within 1e-2
+# of float64 and within 3x the float32 CPU run's own distance from it
+XLSTM_LOGIT_ATOL, XLSTM_VS_CPU = 1e-2, 3.0
 
 KERNELS = {
     "decode_attention": {
@@ -97,6 +125,10 @@ KERNELS = {
     "grouped_matmul": {
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:27",
+    },
+    "mlstm": {
+        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm.py:34",
     },
 }
 
@@ -186,9 +218,40 @@ def gmm_case(torch, E, C, d, f, dtype, seed, pad=0):
     return (x, w), got, want
 
 
-def gmm_within(torch, got, want, dtype) -> tuple[float, bool]:
-    """(max |kernel - plain|, whether every element is within GMM_TOL)."""
-    atol, rtol = GMM_TOL[dtype]
+def mlstm_case(torch, B, H, S, dk, dv, chunk, with_state, dtype, seed):
+    """Model-layout inputs, as the xLSTM block hands them to the kernel: q,
+    k (B, S, H, dk) and v (B, S, H, dv) in ``dtype``, the gates strided
+    views of one (B, S, 2H) tensor.  Returns (inputs, state, kernel result,
+    plain result), each result (h (B, S, H, dv), (C, n, m))."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mlstm import mlstm_chunked_heads_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def inputs(T):
+        q = torch.randn(B, T, H, dk, generator=g, device=DEVICE).abs().to(dt)
+        k = torch.randn(B, T, H, dk, generator=g, device=DEVICE).abs().to(dt)
+        v = torch.randn(B, T, H, dv, generator=g, device=DEVICE).to(dt)
+        gates = torch.randn(B, T, 2 * H, generator=g, device=DEVICE)
+        gates[..., H:] += 2.0   # forget gates near 1, as test_kernels draws them
+        return (q, k, v, *gates.to(dt).chunk(2, dim=-1))
+
+    def plain(xs, state):
+        h, st = mlstm_chunked_heads_plain(*(x.transpose(1, 2) for x in xs), state, chunk=chunk)
+        return h.transpose(1, 2), st
+
+    state = plain(inputs(64), None)[1] if with_state else None
+    xs = inputs(S)
+    got = ops.mlstm_chunked(*xs, state, chunk=chunk)
+    want = plain(xs, state)
+    torch.cuda.synchronize()
+    return xs, state, got, want
+
+
+def within(torch, got, want, tol) -> tuple[float, bool]:
+    """(max |got - want|, whether every element is within (atol, rtol))."""
+    atol, rtol = tol
     diff = (got.float() - want.float()).abs()
     return diff.max().item(), bool((diff <= atol + rtol * want.float().abs()).all())
 
@@ -241,11 +304,25 @@ def check_kernels(torch) -> dict:
     for i, (E, C, d, f, pad, what) in enumerate(GMM_CASES):
         for dt in ("bfloat16", "float32"):
             _, got, want = gmm_case(torch, E, C, d, f, dt, seed=200 + i, pad=pad)
-            err, ok = gmm_within(torch, got, want, dt)
+            err, ok = within(torch, got, want, GMM_TOL[dt])
             print(f"grouped_matmul ({E},{C},{d})x({E},{d},{f}) {dt} {what}"
                   f"{' (row pad ' + str(pad) + ')' if pad else ''}: max_abs_err={err:.3g}, "
                   f"within (atol, rtol)={GMM_TOL[dt]}: {ok}")
             check(ok, f"grouped_matmul disagrees with its plain version: {err}")
+
+    print(f"mlstm |kernel - plain| <= atol + rtol |plain|, (atol, rtol) = {MLSTM_TOL}")
+    for i, (B, H, S, dk, dv, chunk, with_state, what) in enumerate(MLSTM_CASES):
+        for dt in ("bfloat16", "float32"):
+            _, _, (h, st), (hp, stp) = mlstm_case(torch, B, H, S, dk, dv, chunk, with_state,
+                                                  dt, seed=300 + i)
+            err_h, ok_h = within(torch, h, hp, MLSTM_TOL["h"][dt])
+            errs = [within(torch, a, b, MLSTM_TOL["state"][dt]) for a, b in zip(st, stp)]
+            print(f"mlstm B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} {dt} {what}"
+                  f"{', initial state' if with_state else ''}: max_abs_err h={err_h:.3g} "
+                  f"C={errs[0][0]:.3g} n={errs[1][0]:.3g} m={errs[2][0]:.3g}, within: "
+                  f"{ok_h and all(ok for _, ok in errs)}")
+            check(ok_h and all(ok for _, ok in errs),
+                  f"mlstm disagrees with its plain version: h {err_h}, state {errs}")
 
     records = {}
     # decode at the serving shape, whole cache valid (the 2048-position bound)
@@ -305,9 +382,32 @@ def check_kernels(torch) -> dict:
         )
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bfloat16")
         records["grouped_matmul" if regime == "decode" else f"grouped_matmul_{regime}"] = rec
+
+    # mLSTM at an xlstm-1.3b admission of 1024 tokens, empty state; the
+    # work is counted as the TPU kernel's per (sequence*head, chunk): q.k^T
+    # 2L^2 dk, scores.v 2L^2 dv, q.C 2L dk dv and the C update 2L dk dv
+    from repro_torch.kernels.mlstm import mlstm_chunked_heads_plain
+
+    B, H, S, dk, dv, chunk, _, _ = MLSTM_CASES[0]
+    xs, _, (h, _), (hp, _) = mlstm_case(torch, B, H, S, dk, dv, chunk, False, "bfloat16", seed=10)
+    nc = -(-S // chunk)
+    flops = B * H * nc * (2 * chunk * chunk * (dk + dv) + 4 * chunk * dk * dv)
+    nbytes = 2 * (2 * B * S * H * dk + 2 * B * S * H * dv + 2 * B * S * H) + 4 * B * H * (
+        dk * dv + dk + 1)
+    heads = [x.transpose(1, 2) for x in xs]
+    records["mlstm"] = dict(
+        max_abs_err=max_err(torch, h, hp),
+        ms=time_ms(torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), 20),
+        plain_ms=time_ms(torch, lambda: mlstm_chunked_heads_plain(*heads, chunk=chunk), 5),
+        library_ms=None,
+        shape=f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} bfloat16, empty state",
+        library="none: no single PyTorch call computes mLSTM",
+    )
+    records["mlstm"]["bound_ms"], records["mlstm"]["bound_by"] = bound(nbytes, flops, "bfloat16")
     for name, rec in records.items():
+        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         print(f"{name} timed at {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, {rec['library']} {rec['library_ms']:.4f} ms, "
+              f"{rec['plain_ms']:.4f} ms, {rec['library']} {lib}, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return records
 
@@ -365,7 +465,7 @@ def check_model(torch, arch: str) -> None:
     positions they reach (later positions of the same sequence, and that
     lane's decode steps) are left out of the logit comparison."""
     from repro_torch.configs import get_config
-    from repro_torch.models.api import build_model
+    from repro_torch.models.api import build_model, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products on both sides
     torch.backends.cudnn.allow_tf32 = False
@@ -374,7 +474,7 @@ def check_model(torch, arch: str) -> None:
     k = cfg.moe.top_k if cfg.moe else 0
     gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg, device="cpu")
     p_gpu = gpu.init(seed=0)
-    p_cpu = _tree_to(p_gpu, "cpu")
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
     rng = np.random.default_rng(0)
     B, T, pos0 = MODEL_CHECKS[arch]
     max_len = T + 56
@@ -445,10 +545,63 @@ def check_model(torch, arch: str) -> None:
           f"model check {arch}: card and CPU logits differ by {max(errs)}")
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def check_xlstm(torch) -> None:
+    """Phase 4 for xlstm-1.3b: full width cut to one 7:1 group, prefill of
+    2 x 300 tokens (the card's kernel runs chunks of 256 + 44, the CPU's
+    plain path two chunks of 150) and 4 decode steps.  The float32 card and
+    the float32 CPU are each held against a float64 run on the CPU, logits
+    and every state leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm
+    from repro_torch.models.api import build_model, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, B, T = XLSTM_CHECK
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=layers,
+                              param_dtype="float32", dtype="float32")
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64", dtype="float64")
+    p_gpu = build_model(cfg, device=DEVICE).init(seed=0)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    sides = {"card": (build_model(cfg, device=DEVICE), p_gpu, DEVICE),
+             "cpu": (build_model(cfg, device="cpu"), p_cpu, "cpu"),
+             "cpu64": (build_model(cfg64, device="cpu"), tree_map(torch.Tensor.double, p_cpu),
+                       "cpu")}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))) for _ in range(4)]
+    logits, caches = {}, {}
+    for name, (model, params, dev) in sides.items():
+        before = mlstm.launches
+        lg, cache = model.prefill(params, {"tokens": tokens.to(dev)})
+        if name == "card":
+            xl = cfg.xlstm
+            n_mlstm = layers // (xl.mlstm_per_group + xl.slstm_per_group) * xl.mlstm_per_group
+            check(mlstm.launches - before == n_mlstm,
+                  f"xlstm prefill launched the mlstm kernel {mlstm.launches - before} times")
+        logits[name] = [lg.cpu().double()]
+        for step in steps:
+            lg, _ = model.decode_step(params, cache, {"tokens": step.to(dev), "pos": T})
+            logits[name].append(lg.cpu().double())
+        caches[name] = tree_map(lambda t: t.cpu().double(), cache)
+
+    def errs(a, b):
+        return [(x - y).abs().max().item() for x, y in zip(logits[a], logits[b])]
+
+    e_card, e_cpu, e_pair = errs("card", "cpu64"), errs("cpu", "cpu64"), errs("card", "cpu")
+    state = []
+    tree_map(lambda a, b: state.append(within(torch, a, b, MLSTM_TOL["state"]["float32"])),
+             caches["card"], caches["cpu64"])
+    print(f"model check xlstm-1.3b ({layers} layers, float32, prefill {B}x{T} + 4 decode "
+          f"steps), max |logits - float64 CPU| per call: card {[f'{e:.3g}' for e in e_card]}, "
+          f"float32 CPU {[f'{e:.3g}' for e in e_cpu]}; card vs float32 CPU "
+          f"{[f'{e:.3g}' for e in e_pair]}; tolerance {XLSTM_LOGIT_ATOL} and "
+          f"{XLSTM_VS_CPU}x the float32 CPU's; state leaves max |card - float64| "
+          f"{[f'{e:.3g}' for e, _ in state]}, within {MLSTM_TOL['state']['float32']}: "
+          f"{all(ok for _, ok in state)}")
+    check(max(e_card) <= XLSTM_LOGIT_ATOL and max(e_card) <= XLSTM_VS_CPU * max(e_cpu),
+          f"model check xlstm-1.3b: card logits {max(e_card)} from float64")
+    check(all(ok for _, ok in state), "model check xlstm-1.3b: states differ")
 
 
 # -- phase 5: serve the full configs -----------------------------------------
@@ -459,10 +612,12 @@ def serve(torch, arch: str) -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mlstm
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Request, ServingEngine
 
     cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    xlstm = cfg.family == "ssm"
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -472,6 +627,7 @@ def serve(torch, arch: str) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     eng = ServingEngine(model, params, num_slots=8, max_len=2048)
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.payload["cache"]))
     ttft, step_s = [], []
     admit, step = eng.admit, eng.step
 
@@ -493,7 +649,7 @@ def serve(torch, arch: str) -> dict:
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=64)
             for n in lengths]
 
-    dec.launches = fla.launches = gmm.launches = 0   # this model's run starts here
+    dec.launches = fla.launches = gmm.launches = mlstm.launches = 0   # this model's run starts here
     t0 = time.perf_counter()
     out = eng.run(reqs)
     torch.cuda.synchronize()
@@ -522,15 +678,17 @@ def serve(torch, arch: str) -> dict:
     while any(r is not None for r in eng.slot_req):
         eng.step()
 
-    # a profiled window of 3 admissions of one 1024-token prompt (the
-    # largest of the run), each evicted again: where TTFT goes
+    # a profiled window of admissions of one 1024-token prompt (the largest
+    # of the run), each evicted again: where TTFT goes.  Three, or one for
+    # xLSTM, whose sLSTM prefill loop makes ~150 k launches per admission
     long_prompt = rng.integers(0, cfg.vocab_size, 1024)
+    n_long = 1 if xlstm else 3
 
     def admit_long():
         eng.admit(Request(prompt=long_prompt, max_new_tokens=2, rid=300), 0)
         eng.evict(300)
 
-    admit_profile = profile_window(torch, admit_long, 3)
+    admit_profile = profile_window(torch, admit_long, n_long)
 
     sampled = eng.run([Request(prompt=rng.integers(0, cfg.vocab_size, 100),
                                max_new_tokens=8, temperature=0.8, rid=200)])[200]
@@ -538,19 +696,23 @@ def serve(torch, arch: str) -> dict:
           f"sampled request: {sampled}")
     torch.cuda.synchronize()
     launches = {"decode_attention": dec.launches, "flash_attention": fla.launches,
-                "grouped_matmul": gmm.launches}
-    admissions = 16 + len(block) + 3 + 1
-    L, steps = cfg.num_layers, eng.steps_dispatched
-    expected = {"decode_attention": L * steps, "flash_attention": L * admissions,
-                "grouped_matmul": 3 * L * (steps + admissions) if cfg.moe else 0}
+                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches}
+    admissions = 16 + len(block) + n_long + 1
+    steps = eng.steps_dispatched
+    L_attn = 0 if xlstm else cfg.num_layers          # attention layers
+    per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
+    L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
+    expected = {"decode_attention": L_attn * steps, "flash_attention": L_attn * admissions,
+                "grouped_matmul": 3 * L_attn * (steps + admissions) if cfg.moe else 0,
+                "mlstm": L_mlstm * admissions}
     check(launches == expected,
-          f"{arch} launches {launches} != {expected} ({L} layers, {steps} steps, "
+          f"{arch} launches {launches} != {expected} ({cfg.num_layers} layers, {steps} steps, "
           f"{admissions} admissions)")
 
     full = [t for t, n in step_s if n == 8]
     stats = {
         "model": cfg.name, "layers": cfg.num_layers, "params": n_params,
-        "param_bytes": n_bytes,
+        "param_bytes": n_bytes, "cache_bytes": cache_bytes,
         "dtype": "bfloat16", "num_slots": 8, "max_len": 2048,
         "init_s": init_s,
         "run_wall_s": wall, "run_tokens": n_tokens, "tokens_per_s": n_tokens / wall,
@@ -574,8 +736,9 @@ def serve(torch, arch: str) -> dict:
 def profile_window(torch, fn, n: int) -> dict:
     """Device time of ``n`` calls of ``fn`` (decode steps, admissions) under
     ``torch.profiler``: wall time per call, device busy time per call
-    (kernel time summed over the window), the idle share, and the kernels
-    that take the most time."""
+    (kernel time summed over the window), device operations (kernels and
+    copies) per call, the idle share, and the kernels that take the most
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -593,6 +756,7 @@ def profile_window(torch, fn, n: int) -> dict:
         "calls": n,
         "wall_ms_per_call": 1e3 * wall / n,
         "device_busy_ms_per_call": busy_us / 1e3 / n,
+        "device_ops_per_call": sum(e.count for e in kernels) / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "top_kernels_ms_per_call": {
             e.key[:80]: e.self_device_time_total / 1e3 / n for e in top},
@@ -601,23 +765,28 @@ def profile_window(torch, fn, n: int) -> dict:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
 
 
 def _snapshot(eng):
+    from repro_torch.models.api import tree_map
+
     p = eng.payload
-    return ({k: p["cache"][k].clone() for k in ("k", "v")}, p["tokens"].clone(),
+    return (tree_map(lambda t: t.clone(), p["cache"]), p["tokens"].clone(),
             p["pos"].clone(), list(eng.slot_req), eng.slot_remaining.copy(),
             {r: list(t) for r, t in eng.outputs.items()})
 
 
 def _restore(eng, snap):
+    from repro_torch.models.api import tree_map
+
     cache, tokens, pos, slot_req, remaining, outputs = snap
-    for k in ("k", "v"):
-        eng.payload["cache"][k].copy_(cache[k])
+    tree_map(lambda dst, src: dst.copy_(src), eng.payload["cache"], cache)
     eng.payload["tokens"].copy_(tokens)
     eng.payload["pos"].copy_(pos)
     eng.slot_req, eng.slot_remaining, eng.outputs = list(slot_req), remaining.copy(), outputs
@@ -662,6 +831,10 @@ def main() -> int:
         check_model(torch, arch)
         release(torch)
         print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_xlstm(torch)
+    release(torch)
+    print(f"model check xlstm-1.3b took {time.perf_counter() - t0:.1f} s")
     served = {}
     for arch in SERVED:
         t0 = time.perf_counter()
@@ -680,6 +853,8 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         }
+        if rec["library_ms"] is None:
+            entry["library"] = rec["library"]
         if f"{name}_prefill" in records:
             pre = records[f"{name}_prefill"]
             entry["prefill"] = {key: pre[key] for key in (

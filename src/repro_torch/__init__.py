@@ -3,8 +3,9 @@
 The package mirrors ``repro``'s module paths one for one; ``repro`` stays the
 reference the port is tested against.  It imports ``torch`` and never
 ``jax`` or ``repro``.  Subpackages are imported on demand: ``core`` (errors,
-device handler table), ``models`` (dense GQA decoder), ``kernels``
-(hand-written CUDA attention kernels and their plain versions), ``serve``
+device handler table), ``models`` (dense GQA and MoE decoders, xLSTM),
+``kernels`` (hand-written CUDA kernels for attention, the grouped matmul
+and the chunkwise mLSTM, with their plain versions), ``serve``
 (continuous-batching engine), ``configs`` (architecture configs).
 """
 

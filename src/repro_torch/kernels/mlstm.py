@@ -1,0 +1,157 @@
+"""Chunkwise-parallel mLSTM: a CUDA kernel written by hand for Hopper
+(``csrc/mlstm.cu``) beside its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/mlstm.py`` (``_mlstm_kernel``
+and its wrapper ``mlstm_chunked_kernel``): per (sequence, head), chunks of
+L positions run in order carrying the float32 state C (dk x dv), n (dk) and
+m; inside a chunk the output is two products (decay-weighted q.k scores
+times v, and q times the carried C) over a max-stabilised denominator.
+
+What bounds it on an H100: operations.  An xlstm-1.3b admission of 1024
+tokens (4 heads, dk 512, dv 1024, L 256) does 11.8 GFLOP, counted as the
+TPU kernel's work, on ~34 MB.  The TPU kernel keeps C, 2 MB at these widths,
+in VMEM across the whole chunk loop, one grid row per (sequence, head); a
+block here has 227 KB of shared memory, and B*H = 4 rows would fill 4 of
+132 SMs.  What the design does about it, in this first, simple version:
+
+* a scalar prologue per (sequence, head) computes every gate quantity (the
+  log-forget cumsum, the running max, the m chain across chunks) once;
+* the state pass gives each (dk tile, dv tile) of C its own block, walking
+  the chunks in order with the tile in registers and storing the state at
+  the start of every chunk to float32 scratch;
+* the score and output passes then run every (chunk, position tile, dv
+  tile) in parallel, like flash attention with the decay weight in place
+  of the softmax plus one q.C_prev term;
+* any S is taken: the positions past S in the last chunk are masked, so
+  the model calls it with ``chunk = min(chunk_size, S)`` and a prime prompt
+  length never degenerates to chunk 1.
+
+Numerics: q is divided by sqrt(dk) and rounded to its dtype before the
+float32 products, as the model's chunked form (the plain version) does;
+the TPU kernel scales after the upcast.  The products run on the CUDA cores
+in float32; tensor-core tiles, TMA and fusing the passes are later work.
+
+The plain version keeps the reference's chunk rule: the chunk shrinks
+until it divides S.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mlstm_chunk_ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "ham_mlstm_chunked": [_P] * 17 + [_I] * 8 + [_L] * 18 + [_I, _P],
+}
+_TILE = 64  # csrc/mlstm.cu kT: the chunk is padded to a multiple of it
+
+#: kernel launches made by :func:`mlstm_chunked_heads` (plain calls not counted)
+launches = 0
+
+
+def _divisor_chunk(chunk: int, S: int) -> int:
+    """The reference model's chunk: ``min(chunk, S)``, shrunk until it
+    divides S (``repro/models/xlstm.py:257-260``)."""
+    L = min(chunk, S)
+    while S % L:
+        L -= 1
+    return L
+
+
+def mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state=None, *, chunk):
+    """The plain PyTorch version of :func:`mlstm_chunked_heads`."""
+    t = lambda a: a.transpose(1, 2)   # (B, H, S, ...) -> the model's (B, S, H, ...)
+    h, st = mlstm_chunk_ref(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
+                            chunk=_divisor_chunk(chunk, q.shape[2]))
+    return t(h), st
+
+
+def mlstm_chunked_plain(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
+    """The plain PyTorch version, in the kernel layout of
+    :func:`mlstm_chunked`."""
+    st = None if state is None else tuple(s[None] for s in state)
+    h, (C, n, m) = mlstm_chunked_heads_plain(q[None], k[None], v[None], i_pre[None],
+                                             f_pre[None], st, chunk=chunk)
+    return h[0], (C[0], n[0], m[0])
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
+    """The reference's signature: q, k (BH, S, dk); v (BH, S, dv); gates
+    (BH, S); state (C (BH,dk,dv), n (BH,dk), m (BH,)).  Returns (h (BH, S,
+    dv), (C, n, m))."""
+    st = None if state is None else tuple(s[None] for s in state)
+    h, (C, n, m) = mlstm_chunked_heads(q[None], k[None], v[None], i_pre[None],
+                                       f_pre[None], st, chunk=chunk)
+    return h[0], (C[0], n[0], m[0])
+
+
+def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
+    """q, k: (B, H, S, dk); v: (B, H, S, dv); gates (B, H, S), any strides
+    (a unit last dim for q/k/v); state (C (B,H,dk,dv), n (B,H,dk), m (B,H))
+    float32, or None for the empty state.  Returns (h (B, H, S, dv) in v's
+    dtype, written into ``out`` if given, (C, n, m) float32).
+
+    CPU tensors take the plain version (chunk shrunk to divide S); CUDA
+    tensors launch the kernel with chunk ``min(chunk, S)`` and a masked
+    ragged tail.
+    """
+    if q.device.type == "cpu":
+        h, st = mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state, chunk=chunk)
+        return (h if out is None else out.copy_(h)), st
+    return _launch(q, k, v, i_pre, f_pre, state, chunk, out)
+
+
+def _check_aux(q, tensors, dtype, what):
+    for t in tensors:
+        if t.device != q.device or t.dtype != dtype:
+            raise TypeError(f"mlstm {what} must be {dtype} on {q.device}, "
+                            f"got {t.dtype} on {t.device}")
+
+
+def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
+    global launches
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    if out is None:
+        out = torch.empty((B, H, S, dv), dtype=v.dtype, device=v.device)
+    dtype = _build.check_inputs("mlstm", (q, k, v, out))
+    if (k.shape != q.shape or v.shape != (B, H, S, dv) or out.shape != v.shape
+            or i_pre.shape != (B, H, S) or f_pre.shape != (B, H, S)):
+        raise ValueError(f"mlstm shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} gates {tuple(i_pre.shape)}")
+    # the kernel reads the gates as scalars through strides
+    _check_aux(q, (i_pre, f_pre), q.dtype, "gates")
+    if chunk < 1:
+        raise ValueError(f"mlstm chunk must be positive, got {chunk}")
+    L = min(chunk, S)
+    nc, Lp = -(-S // L), -(-L // _TILE) * _TILE
+    f32 = dict(dtype=torch.float32, device=q.device)
+    C, n, m = (torch.empty((B, H, dk, dv), **f32), torch.empty((B, H, dk), **f32),
+               torch.empty((B, H), **f32))
+    if state is not None:
+        _check_aux(q, state, torch.float32, "state")
+        if (tuple(state[0].shape), tuple(state[1].shape), tuple(state[2].shape)) != (
+                (B, H, dk, dv), (B, H, dk), (B, H)) or not all(s.is_contiguous() for s in state):
+            raise ValueError("mlstm state must be contiguous (C (B,H,dk,dv), n (B,H,dk), m (B,H))")
+    st0 = state if state is not None else (C, n, m)   # not read without a state
+    BH = B * H
+    ws = [torch.empty(size, **f32) for size in (
+        4 * BH * nc * Lp, BH * (2 * nc + 1), BH * nc * Lp * Lp, BH * nc * dk * dv, BH * nc * dk)]
+    lib = _build.library("mlstm", _SIGNATURES)
+    err = lib.ham_mlstm_chunked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(), f_pre.data_ptr(),
+        *(s.data_ptr() for s in st0), out.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
+        *(w.data_ptr() for w in ws),
+        B, H, S, dk, dv, L, int(state is not None), dtype,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *i_pre.stride(), *f_pre.stride(),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "mlstm")
+    launches += 1
+    return out, (C, n, m)

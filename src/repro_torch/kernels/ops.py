@@ -6,7 +6,8 @@ into the kernels' head-major layout on every call; here the kernels read
 strided views, so the wrappers only reshape and transpose views and
 allocate the output in the model's layout.  The MoE layer's dispatched
 tokens carry a group dim, ``(G, E, C, d)``, which the grouped-matmul kernel
-folds into its capacity dim.
+folds into its capacity dim.  The mLSTM kernel reads q/k/v and the gates
+of the model's ``(B, S, H, ...)`` layout in place and writes h into it.
 
 A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
 kernel (each kernel module keeps its launch counter).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import grouped_matmul as gmm
+from repro_torch.kernels import mlstm as _mlstm
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_heads
 
@@ -52,3 +54,15 @@ def grouped_matmul(x, w):
     G, E, C, d = x.shape
     out = gmm.grouped_matmul(x.transpose(0, 1).reshape(E, G * C, d), w)
     return out.view(E, G, C, -1).transpose(0, 1)
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
+    """Model layout: q, k (B, S, H, dk); v (B, S, H, dv); gates (B, S, H);
+    state (C (B,H,dk,dv), n (B,H,dk), m (B,H)) or None.  Returns
+    (h (B, S, H, dv), (C, n, m)).  The kernel takes ``chunk`` with a masked
+    ragged tail; the plain version shrinks it to divide S."""
+    h = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    t = lambda a: a.transpose(1, 2)
+    _, st = _mlstm.mlstm_chunked_heads(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
+                                       chunk=chunk, out=t(h))
+    return h, st

@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the attention and grouped-matmul kernels (port
-of ``repro.kernels.ref``, same signatures and layouts).
+"""Plain PyTorch oracles for the attention, grouped-matmul and mLSTM kernels
+(port of ``repro.kernels.ref``, same signatures and layouts).
 
 No tiling, no shared-memory reasoning — just the math, in float32, with the
 result cast back to the input dtype.  They are the plain versions the CUDA
@@ -47,3 +47,17 @@ def grouped_matmul_ref(x, w):
     """Oracle for grouped_matmul: per-expert batched GEMM.
     x: (E, C, d), w: (E, d, f) -> (E, C, f), fp32 accumulation."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def mlstm_chunk_ref(q, k, v, i_pre, f_pre, state=None, *, chunk):
+    """Oracle for the mlstm kernel: the port's ``models.xlstm`` chunked
+    formulation in model layout (itself held against the recurrence)."""
+    from repro_torch.models.xlstm import mlstm_chunked
+
+    return mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk=chunk)
+
+
+def mlstm_recurrent_ref(q, k, v, i_pre, f_pre, state=None):
+    from repro_torch.models.xlstm import mlstm_recurrent
+
+    return mlstm_recurrent(q, k, v, i_pre, f_pre, state)

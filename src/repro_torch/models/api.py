@@ -1,4 +1,5 @@
-"""Unified model API (port of ``repro.models.api``), dense and MoE branches.
+"""Unified model API (port of ``repro.models.api``): the dense, MoE and
+``ssm`` (xLSTM) branches.
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose members are
 plain functions over a param dict, bound to one device.  ``device=None``
@@ -14,6 +15,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
 
 
@@ -37,25 +39,49 @@ class Model:
     prefill: Callable        # (params, batch) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch) -> (logits, cache), cache in place
     init_cache: Callable     # (batch_size, max_len) -> cache
+    #: the batch (slot) axis of every cache leaf: (L, B, S, Hkv, hd) KV
+    #: caches use 1, xLSTM states (G, M, B, ...) use 2
+    cache_batch_axis: int
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts and tuples of
+    tensors) and the matching leaves of ``rest``, in the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only)"
+            f"family {cfg.family!r} is not ported yet (dense, moe and ssm only)"
         )
 
-    def init(seed: int = 0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return T.lm_init(cfg, device=dev, generator=gen)
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
 
+    if cfg.family == "ssm":  # xLSTM
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: X.xlstm_init(cfg, device=dev, generator=generator(seed)),
+            forward=lambda p, b: X.xlstm_forward(p, b, cfg)[0],
+            prefill=lambda p, b: X.xlstm_forward(p, b, cfg, return_cache=True),
+            decode_step=lambda p, c, b: X.xlstm_decode_step(p, c, b, cfg),
+            init_cache=lambda bs, ml: X.xlstm_init_cache(cfg, bs, ml, device=dev),
+            cache_batch_axis=2,
+        )
     return Model(
         cfg=cfg,
         device=dev,
-        init=init,
+        init=lambda seed=0: T.lm_init(cfg, device=dev, generator=generator(seed)),
         forward=lambda p, b: T.lm_forward(p, b, cfg)[0],
         prefill=lambda p, b: T.lm_forward(p, b, cfg, return_cache=True),
         decode_step=lambda p, c, b: T.lm_decode_step(p, c, b, cfg),
         init_cache=lambda bs, ml: T.lm_init_cache(cfg, bs, ml, device=dev),
+        cache_batch_axis=1,
     )

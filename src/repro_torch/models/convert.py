@@ -1,10 +1,11 @@
 """Carry the reference's param and cache trees across to the port.
 
-The reference keeps params and caches as nested dicts of arrays with the
-same layouts the port uses, so conversion is leaf by leaf with no
-transposes.  Feed it ``jax.tree_util.tree_map(np.asarray, tree)``: numpy
-leaves, bfloat16 ones included (``ml_dtypes``, which ``torch.from_numpy``
-does not read, so they pass through float32 exactly).
+The reference keeps params and caches as nested dicts (and, for the xLSTM
+states, tuples) of arrays with the same layouts the port uses, so
+conversion is leaf by leaf with no transposes.  Feed it
+``jax.tree_util.tree_map(np.asarray, tree)``: numpy leaves, bfloat16 ones
+included (``ml_dtypes``, which ``torch.from_numpy`` does not read, so they
+pass through float32 exactly).
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ from repro_torch.models.transformer import torch_dtype
 #: param leaves the reference keeps in float32 whatever ``param_dtype`` is
 #: (``repro/models/moe.py``: the router, so routing never rounds)
 FLOAT32_LEAVES = frozenset({"router"})
+#: cache leaves the reference keeps in float32 whatever ``cfg.dtype`` is:
+#: the xLSTM cell states, mLSTM (C, n, m) and sLSTM (c, n, m), by their
+#: position in the state tuple (``repro/models/xlstm.py:287-292, :400-406``)
+FLOAT32_CACHE_LEAVES = {"mlstm": (0, 1, 2), "slstm": (1, 2, 3)}
 
 
 def _leaf(a, device, dtype):
@@ -28,20 +33,31 @@ def _leaf(a, device, dtype):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _convert(tree, device, dtype, name=None):
+def _convert(tree, device, dtype, keep32, path=()):
+    """Convert every leaf of nested dicts and tuples; ``keep32(path)`` says
+    which leaves stay float32."""
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
-    return _leaf(tree, device, torch.float32 if name in FLOAT32_LEAVES else dtype)
+        return {k: _convert(v, device, dtype, keep32, (*path, k)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_convert(v, device, dtype, keep32, (*path, i))
+                          for i, v in enumerate(tree))
+    return _leaf(tree, device, torch.float32 if keep32(path) else dtype)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
     """Reference params (numpy leaves) -> port params on ``device``, in
     ``dtype`` (default ``cfg.param_dtype``); the leaves the reference keeps
     in float32 (``FLOAT32_LEAVES``) stay float32."""
-    return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.param_dtype))
+    return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.param_dtype),
+                    lambda path: path[-1] in FLOAT32_LEAVES)
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
-    """Reference KV cache ``{k, v}`` (numpy leaves) -> port cache on
-    ``device``, in ``dtype`` (default the compute dtype ``cfg.dtype``)."""
-    return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.dtype))
+    """Reference cache (numpy leaves: a KV cache ``{k, v}`` or the xLSTM
+    states) -> port cache on ``device``, in ``dtype`` (default the compute
+    dtype ``cfg.dtype``); the leaves the reference keeps in float32
+    (``FLOAT32_CACHE_LEAVES``) stay float32."""
+    def keep32(path):
+        return len(path) == 2 and path[1] in FLOAT32_CACHE_LEAVES.get(path[0], ())
+
+    return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.dtype), keep32)

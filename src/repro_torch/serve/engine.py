@@ -9,7 +9,8 @@ sharing a payload::
 
 Step selection is an integer key that indexes the branch list (HAM's O(1)
 key dispatch).  Slots admit new requests by writing a prefilled prompt cache
-into the batch cache (continuous batching).
+into the batch cache (continuous batching): every leaf of the cache tree,
+the prompt's prefix of a KV cache and the whole lane of a recurrent state.
 
 Differences from the reference, all forced by PyTorch:
 
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device_table import DeviceHandlerTable
-from repro_torch.models.api import resolve_device
+from repro_torch.models.api import resolve_device, tree_map
 
 
 @dataclasses.dataclass
@@ -86,6 +87,15 @@ def build_serve_table(model, params, *, generator: torch.Generator):
     return table
 
 
+def _insert(full, part, axis: int, slot: int) -> None:
+    """Write a one-sequence prefill leaf into lane ``slot`` of the batch
+    cache leaf, in place, at offset 0 on every other axis (the reference's
+    ``dynamic_update_slice`` at ``(.., slot, 0, ..)``): a KV cache takes the
+    prompt's prefix ``[:t]``, a recurrent state its whole lane."""
+    src = part.select(axis, 0)
+    full.select(axis, slot)[tuple(slice(0, n) for n in src.shape)].copy_(src)
+
+
 class ServingEngine:
     """Continuous-batching loop on top of the dispatch table.
 
@@ -133,9 +143,9 @@ class ServingEngine:
             )
         tokens = torch.from_numpy(prompt[None, :]).to(self.device)
         logits, pcache = self.model.prefill(self.params, {"tokens": tokens})
-        cache, t = self.payload["cache"], prompt.shape[0]
-        for name in ("k", "v"):
-            cache[name][:, slot, :t] = pcache[name][:, 0]
+        t, axis = prompt.shape[0], self.model.cache_batch_axis
+        tree_map(lambda full, part: _insert(full, part, axis, slot),
+                 self.payload["cache"], pcache)
         first = logits[0, -1, :].argmax()
         self.payload["tokens"][slot, 0] = first
         self.payload["pos"][slot] = t

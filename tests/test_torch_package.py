@@ -74,15 +74,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, params, num_slots=1, max_len=8)
     with pytest.raises(NotImplementedError):
-        build_model(get_reduced("xlstm-1.3b"), device="cpu")
+        build_model(get_reduced("zamba2-2.7b"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(get_reduced("xlstm-1.3b"))
 
 
 def _launch_counts():
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mlstm
 
-    return dec.launches, fla.launches, gmm.launches
+    return dec.launches, fla.launches, gmm.launches, mlstm.launches
 
 
 def _call(kernel, device):
@@ -101,11 +104,14 @@ def _call(kernel, device):
     if kernel == "flash_attention":
         q, kv = t(2, 16, 8, 32), t(2, 16, 2, 32)
         return ops.flash_attention_bhsd(q, kv, kv)
+    if kernel == "mlstm":
+        qk, g = t(2, 37, 2, 16), t(2, 37, 2)
+        return ops.mlstm_chunked(qk, qk, t(2, 37, 2, 32), g, g, chunk=8)[0]
     return ops.grouped_matmul(t(1, 4, 8, 32), t(4, 32, 16))
 
 
-KERNELS = ["decode_attention", "flash_attention", "grouped_matmul"]
-KERNEL_IDS = ["decode", "flash", "grouped_matmul"]
+KERNELS = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm"]
+KERNEL_IDS = ["decode", "flash", "grouped_matmul", "mlstm"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
