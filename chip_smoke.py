@@ -11,17 +11,20 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving shapes of internlm2-20b, olmoe-1b-7b and xlstm-1.3b (and
-   qwen2-moe's expert width), float32 and bfloat16, and time kernel, plain
-   version and, where one exists, the one-call PyTorch yardstick
-   (``scaled_dot_product_attention``, ``torch.bmm``; none computes mLSTM);
+   serving shapes of internlm2-20b, olmoe-1b-7b, xlstm-1.3b and zamba2-2.7b
+   (and qwen2-moe's expert width), float32 and bfloat16, and time kernel,
+   plain version and, where one exists, the one-call PyTorch yardstick
+   (``scaled_dot_product_attention``, ``torch.bmm``; none computes mLSTM or
+   SSD);
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
-   width cut to 2 layers, and xlstm-1.3b cut to one group of 8 layers,
-   float32 weights, prefill + 4 decode steps with the kernels on the card
-   against the plain path on the CPU (MoE routing near-ties between the two
-   are reported, not hidden; the xLSTM states are compared too);
-5. serve internlm2-20b, olmoe-1b-7b and xlstm-1.3b, each at its full
-   published config in bfloat16 (seeded random weights): 16 greedy requests
+   width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
+   zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
+   applications), float32 weights, prefill + 4 decode steps with the
+   kernels on the card against the plain path on the CPU (MoE routing
+   near-ties between the two are reported, not hidden; the recurrent states
+   are compared too);
+5. serve internlm2-20b, olmoe-1b-7b, xlstm-1.3b and zamba2-2.7b, each at its
+   full published config in bfloat16 (seeded random weights): 16 greedy requests
    through ``run()``, a profiled window of decode steps, a ``step_many(16)``
    block against 16 ``step()`` calls from the same state, a profiled window
    of 1024-token admissions (one for xlstm-1.3b, whose sLSTM prefill is a
@@ -85,7 +88,7 @@ MODEL_CHECKS = {
     "olmoe-1b-7b": (2, 128, [128, 100]),
     "qwen2-moe-a2.7b": (2, 128, [128, 100]),
 }
-SERVED = ("internlm2-20b", "olmoe-1b-7b", "xlstm-1.3b")
+SERVED = ("internlm2-20b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b")
 
 # mLSTM: |kernel - plain| <= atol + rtol |plain| for h and for the final
 # state.  float32 takes tests/test_kernels.py's tolerances for a kernel held
@@ -113,6 +116,24 @@ XLSTM_CHECK = (8, 2, 300)   # layers (one 7:1 group), batch, prompt: 256 + 44 on
 # of float64 and within 3x the float32 CPU run's own distance from it
 XLSTM_LOGIT_ATOL, XLSTM_VS_CPU = 1e-2, 3.0
 
+# SSD: |kernel - plain| <= atol + rtol |plain|, y as mLSTM's h (the plain
+# version shrinks the chunk to divide S, the kernel masks a ragged tail; a
+# bf16 y is one rounding of an O(1) float32 sum), the float32 state h
+SSD_TOL = {"y": {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 1e-2)},
+           "state": {"float32": (5e-3, 1e-2), "bfloat16": (5e-3, 1e-2)}}
+# (B, S, H, G, chunk, initial state, views, what): N = P = 64; with views x,
+# B and C are strided views of one (B, S, H*P + 2*G*N) conv output, as the
+# Mamba2 block passes them; a state comes from the plain version on a
+# 64-token prefix
+SSD_CASES = [
+    (1, 1024, 80, 1, 256, False, True, "zamba2-2.7b 1024-token admission"),
+    (1, 300, 80, 1, 256, True, True, "ragged second chunk (256 + 44)"),
+    (1, 509, 80, 1, 256, True, False, "prime length (256 + 253)"),
+    (2, 200, 8, 2, 64, True, True, "B = 2, G = 2 (4 heads a group), chunks 3 x 64 + 8"),
+    (1, 7, 8, 1, 256, False, False, "short prompt, one masked tile"),
+]
+ZAMBA2_CHECK = (12, 2, 300)   # layers (2 groups of 6), batch, prompt: 256 + 44 on the card
+
 KERNELS = {
     "decode_attention": {
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -129,6 +150,10 @@ KERNELS = {
     "mlstm": {
         "source": "src/repro_torch/kernels/csrc/mlstm.cu",
         "replaces": "src/repro/kernels/mlstm.py:34",
+    },
+    "mamba2_ssd": {
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd.py:29",
     },
 }
 
@@ -249,6 +274,49 @@ def mlstm_case(torch, B, H, S, dk, dv, chunk, with_state, dtype, seed):
     return xs, state, got, want
 
 
+def ssd_inputs(torch, B, S, H, G, N, P, dtype, g, views):
+    """x (B, S, H, P), Bm/Cm (B, S, G, N) in ``dtype``, ~ silu of N(0, 1) as
+    the conv output is; dt (B, S, H) float32 = softplus(N(0, 1) + dt_bias)
+    with dt_bias drawn as ``mamba2_block_init`` draws it, so decays are the
+    model's; A = -linspace(1, 16, H) as the model's A_log gives; D ~ N(0, 1)."""
+    import torch.nn.functional as F
+
+    di = H * P
+    if views:
+        conv = F.silu(torch.randn(B, S, di + 2 * G * N, generator=g, device=DEVICE)).to(dtype)
+        x = conv[..., :di].unflatten(-1, (H, P))
+        Bm = conv[..., di:di + G * N].unflatten(-1, (G, N))
+        Cm = conv[..., di + G * N:].unflatten(-1, (G, N))
+    else:
+        x, Bm, Cm = (F.silu(torch.randn(B, S, K, W, generator=g, device=DEVICE)).to(dtype)
+                     for K, W in ((H, P), (G, N), (G, N)))
+    u = torch.rand(H, generator=g, device=DEVICE)
+    dt_bias = torch.log(torch.expm1(torch.exp(np.log(1e-3) + u * np.log(100.0))))
+    dt = F.softplus(torch.randn(B, S, H, generator=g, device=DEVICE) + dt_bias)
+    A = -torch.linspace(1.0, 16.0, H, device=DEVICE)
+    D = torch.randn(H, generator=g, device=DEVICE)
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_case(torch, B, S, H, G, chunk, with_state, views, dtype, seed):
+    """Returns (inputs, state, kernel result, plain result), each result
+    (y (B, S, H, P), h (B, H, N, P))."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba2_ssd import ssd_chunked_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    state = None
+    if with_state:
+        prefix = ssd_inputs(torch, B, 64, H, G, 64, 64, tdt, g, False)
+        state = ssd_chunked_plain(*prefix, chunk=chunk)[1]
+    xs = ssd_inputs(torch, B, S, H, G, 64, 64, tdt, g, views)
+    got = ops.ssd_chunked(*xs, state, chunk=chunk)
+    want = ssd_chunked_plain(*xs, state, chunk=chunk)
+    torch.cuda.synchronize()
+    return xs, state, got, want
+
+
 def within(torch, got, want, tol) -> tuple[float, bool]:
     """(max |got - want|, whether every element is within (atol, rtol))."""
     atol, rtol = tol
@@ -269,13 +337,16 @@ def check_kernels(torch) -> dict:
           f"grouped_matmul |kernel - plain| <= atol + rtol |plain|, (atol, rtol) = {GMM_TOL}")
     full_lengths = [1, 2, 127, 128, 129, 2047, 2048, 5000]  # 1, S and >= S
     olmoe_lengths = [1, 129, 2048, 5000] * 2
+    zamba2_lengths = [1, 2, 79, 80, 700, 2047, 2048, 5000]
     decode_cases = [
         (8, 8, 6, 2048, 128, dt, full_lengths) for dt in ("bfloat16", "float32")
     ] + [
         (8, 16, 1, 2048, 128, dt, olmoe_lengths) for dt in ("bfloat16", "float32")
     ] + [
         (3, 2, 4, 300, 64, dt, [1, 150, 300]) for dt in ("bfloat16", "float32")
-    ] + [(2, 1, 8, 100, 32, "float32", [37, 100])]
+    ] + [(2, 1, 8, 100, 32, "float32", [37, 100])] + [
+        (8, 32, 1, 2048, 80, dt, zamba2_lengths) for dt in ("bfloat16", "float32")  # zamba2
+    ] + [(2, 2, 3, 300, 80, "float32", [1, 300])]
     for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(decode_cases):
         _, got, want = decode_case(torch, B, Hkv, qpk, S, d, dt, lens, seed=i)
         err = max_err(torch, got, want)
@@ -293,7 +364,9 @@ def check_kernels(torch) -> dict:
         (1, 48, 8, 333, 128, "float32", True),
         (2, 8, 2, 200, 64, "float32", True),
         (1, 4, 4, 96, 32, "float32", False),
-    ]
+    ] + [
+        (1, 32, 32, S, 80, dt, True) for S in (1024, 333) for dt in ("bfloat16", "float32")
+    ]  # zamba2's shared attention, d = 80
     for i, (B, H, Hkv, S, d, dt, causal) in enumerate(flash_cases):
         _, got, want = flash_case(torch, B, H, Hkv, S, d, dt, causal, seed=100 + i)
         err = max_err(torch, got, want)
@@ -324,46 +397,63 @@ def check_kernels(torch) -> dict:
             check(ok_h and all(ok for _, ok in errs),
                   f"mlstm disagrees with its plain version: h {err_h}, state {errs}")
 
-    records = {}
-    # decode at the serving shape, whole cache valid (the 2048-position bound)
-    B, Hkv, qpk, S, d = 8, 8, 6, 2048, 128
-    (q, k, v, lens), got, want = decode_case(
-        torch, B, Hkv, qpk, S, d, "bfloat16", [S] * B, seed=7)
-    H, es = Hkv * qpk, 2
-    nbytes = 2 * q.numel() * es + 2 * int(lens.sum()) * Hkv * d * es + lens.numel() * 4
-    flops = 4 * int(lens.sum()) * H * d
-    q4, kt, vt = q.reshape(B, Hkv, qpk, d), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
-    qs = q.transpose(1, 2)   # (B, H, 1, d)
-    records["decode_attention"] = dict(
-        max_abs_err=max_err(torch, got, want),
-        ms=time_ms(torch, lambda: ops.decode_attention_bhsd(q, k, v, lens), 50),
-        plain_ms=time_ms(torch, lambda: decode_attention_plain(q4, kt, vt, lens), 20),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask, enable_gqa=True), 50),
-        shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}",
-        library="sdpa",
-    )
-    records["decode_attention"]["bound_ms"], records["decode_attention"]["bound_by"] = \
-        bound(nbytes, flops, "bfloat16")
+    print(f"mamba2_ssd |kernel - plain| <= atol + rtol |plain|, (atol, rtol) = {SSD_TOL}")
+    for i, (B, S, H, G, chunk, with_state, views, what) in enumerate(SSD_CASES):
+        for dt in ("bfloat16", "float32"):
+            _, _, (y, h), (yp, hp) = ssd_case(torch, B, S, H, G, chunk, with_state, views, dt,
+                                              seed=400 + i)
+            err_y, ok_y = within(torch, y, yp, SSD_TOL["y"][dt])
+            err_h, ok_h = within(torch, h, hp, SSD_TOL["state"][dt])
+            print(f"mamba2_ssd B={B} S={S} H={H} G={G} N=P=64 chunk={chunk} {dt} {what}"
+                  f"{', initial state' if with_state else ''}"
+                  f"{', conv-output views' if views else ''}: max_abs_err y={err_y:.3g} "
+                  f"h={err_h:.3g}, within: {ok_y and ok_h}")
+            check(ok_y and ok_h, f"mamba2_ssd disagrees with its plain version: y {err_y}, "
+                                 f"h {err_h}")
 
-    # flash at the largest admission prefill: one prompt of 1024 tokens
-    B, H, Hkv, S, d = 1, 48, 8, 1024, 128
-    (q, k, v), got, want = flash_case(torch, B, H, Hkv, S, d, "bfloat16", True, seed=8)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * B * H * d * (S * (S + 1) // 2)
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    records["flash_attention"] = dict(
-        max_abs_err=max_err(torch, got, want),
-        ms=time_ms(torch, lambda: ops.flash_attention_bhsd(q, k, v, causal=True), 20),
-        plain_ms=time_ms(torch, lambda: flash_attention_heads_plain(qh, kh, vh, causal=True), 10),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True), 20),
-        shape=f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 causal",
-        library="sdpa",
-    )
-    records["flash_attention"]["bound_ms"], records["flash_attention"]["bound_by"] = \
-        bound(nbytes, flops, "bfloat16")
+    records = {}
+    # decode at the serving shapes, whole cache valid (the 2048-position
+    # bound): internlm2-20b, and zamba2-2.7b's shared block at d = 80
+    for key, (B, Hkv, qpk, S, d) in (("decode_attention", (8, 8, 6, 2048, 128)),
+                                     ("decode_attention_zamba2", (8, 32, 1, 2048, 80))):
+        (q, k, v, lens), got, want = decode_case(
+            torch, B, Hkv, qpk, S, d, "bfloat16", [S] * B, seed=7)
+        H, es = Hkv * qpk, 2
+        nbytes = 2 * q.numel() * es + 2 * int(lens.sum()) * Hkv * d * es + lens.numel() * 4
+        flops = 4 * int(lens.sum()) * H * d
+        q4, kt, vt = q.reshape(B, Hkv, qpk, d), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(S, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)   # (B, H, 1, d)
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: ops.decode_attention_bhsd(q, k, v, lens), 50),
+            plain_ms=time_ms(torch, lambda: decode_attention_plain(q4, kt, vt, lens), 20),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kt, vt, attn_mask=mask, enable_gqa=True), 50),
+            shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}",
+            library="sdpa",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
+
+    # flash at the largest admission prefill, one prompt of 1024 tokens:
+    # internlm2-20b, and zamba2-2.7b's shared block at d = 80
+    for key, (B, H, Hkv, S, d) in (("flash_attention", (1, 48, 8, 1024, 128)),
+                                   ("flash_attention_zamba2", (1, 32, 32, 1024, 80))):
+        (q, k, v), got, want = flash_case(torch, B, H, Hkv, S, d, "bfloat16", True, seed=8)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * B * H * d * (S * (S + 1) // 2)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: ops.flash_attention_bhsd(q, k, v, causal=True), 20),
+            plain_ms=time_ms(torch, lambda: flash_attention_heads_plain(qh, kh, vh, causal=True),
+                             10),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+            shape=f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 causal",
+            library="sdpa",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
 
     # grouped matmul at olmoe's decode gate (the main path's regime: 48
     # calls per step) and at a 1024-token prefill's gate; each call streams
@@ -404,6 +494,30 @@ def check_kernels(torch) -> dict:
         library="none: no single PyTorch call computes mLSTM",
     )
     records["mlstm"]["bound_ms"], records["mlstm"]["bound_by"] = bound(nbytes, flops, "bfloat16")
+
+    # SSD at a zamba2-2.7b admission of 1024 tokens, empty state, x/B/C
+    # views of one conv output as the block passes them; the work is counted
+    # as the TPU kernel's per (sequence*head, chunk): C.B^T 2L^2 N, scores.x
+    # 2L^2 P, C.h 2L N P and the h update 2L N P; the bytes are x, B, C,
+    # dt, A and D read once, y and the final h written once
+    from repro_torch.kernels.mamba2_ssd import ssd_chunked_plain
+
+    B, S, H, G, chunk, _, _, _ = SSD_CASES[0]
+    N = P = 64
+    xs, _, (y, _), (yp, _) = ssd_case(torch, B, S, H, G, chunk, False, True, "bfloat16", seed=11)
+    nc = -(-S // chunk)
+    flops = B * H * nc * (2 * chunk * chunk * (N + P) + 4 * chunk * N * P)
+    nbytes = 2 * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + 2 * H + B * H * N * P)
+    records["mamba2_ssd"] = dict(
+        max_abs_err=max_err(torch, y, yp),
+        ms=time_ms(torch, lambda: ops.ssd_chunked(*xs, chunk=chunk), 20),
+        plain_ms=time_ms(torch, lambda: ssd_chunked_plain(*xs, chunk=chunk), 5),
+        library_ms=None,
+        shape=f"B={B} S={S} H={H} G={G} N=P=64 chunk={chunk} bfloat16, empty state",
+        library="none: no single PyTorch call computes SSD",
+    )
+    records["mamba2_ssd"]["bound_ms"], records["mamba2_ssd"]["bound_by"] = bound(
+        nbytes, flops, "bfloat16")
     for name, rec in records.items():
         lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         print(f"{name} timed at {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
@@ -604,6 +718,80 @@ def check_xlstm(torch) -> None:
     check(all(ok for _, ok in state), "model check xlstm-1.3b: states differ")
 
 
+def check_zamba2(torch) -> None:
+    """Phase 4 for zamba2-2.7b: full width cut to 2 groups (12 Mamba2
+    blocks, 2 applications of the shared block), float32, prefill of 2 x
+    300 tokens (the card's SSD kernel runs chunks of 256 + 44, the CPU's
+    plain path two chunks of 150) and 4 per-slot decode steps.  Logits and
+    every cache leaf, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models.api import build_model, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, B, T = ZAMBA2_CHECK
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=layers,
+                              param_dtype="float32", dtype="float32")
+    apps = layers // cfg.ssm.attn_every
+    gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg, device="cpu")
+    p_gpu = gpu.init(seed=0)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
+    max_len = T + 8
+    before = (ssd.launches, fla.launches)
+    lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.to(DEVICE)})
+    check((ssd.launches - before[0], fla.launches - before[1]) == (layers, apps),
+          f"zamba2 prefill launched ssd {ssd.launches - before[0]}, flash "
+          f"{fla.launches - before[1]} times")
+    lc, cc = cpu.prefill(p_cpu, {"tokens": tokens})
+    errs = [max_err(torch, lg.cpu(), lc)]
+    state = {}
+
+    def leaf_errs(card, cpu_tree):
+        for name, a, b in (("h", card["mamba"][0], cpu_tree["mamba"][0]),
+                           ("conv", card["mamba"][1], cpu_tree["mamba"][1]),
+                           ("k", card["attn_kv"]["k"], cpu_tree["attn_kv"]["k"]),
+                           ("v", card["attn_kv"]["v"], cpu_tree["attn_kv"]["v"])):
+            tol = SSD_TOL["state"]["float32"] if name == "h" else (LOGIT_ATOL, 0.0)
+            err, ok = within(torch, a.cpu(), b, tol)
+            prev = state.get(name, (0.0, True))
+            state[name] = (max(prev[0], err), prev[1] and ok)
+
+    leaf_errs(cg, cc)
+    cache_g, cache_c = gpu.init_cache(B, max_len), cpu.init_cache(B, max_len)
+    for full, part in ((cache_g, cg), (cache_c, cc)):
+        for i in range(2):
+            full["mamba"][i].copy_(part["mamba"][i])
+        for name in ("k", "v"):
+            full["attn_kv"][name][:, :, :T] = part["attn_kv"][name]
+    pos = np.array([T, T - 50])   # lane 1 decodes as if its prompt were shorter
+    for _ in range(4):
+        step = rng.integers(0, cfg.vocab_size, (B, 1))
+        before = dec.launches
+        lg, _ = gpu.decode_step(p_gpu, cache_g, {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                 "pos": torch.from_numpy(pos).to(DEVICE)})
+        check(dec.launches - before == apps,
+              f"zamba2 decode launched decode_attention {dec.launches - before} times")
+        lc, _ = cpu.decode_step(p_cpu, cache_c, {"tokens": torch.from_numpy(step),
+                                                 "pos": torch.from_numpy(pos)})
+        errs.append(max_err(torch, lg.cpu(), lc))
+        pos = pos + 1
+    leaf_errs(cache_g, cache_c)
+    print(f"model check zamba2-2.7b ({layers} Mamba2 blocks, {apps} shared-block applications, "
+          f"float32, prefill {B}x{T} + 4 decode steps): max |logits card - CPU| per call "
+          f"{[f'{e:.3g}' for e in errs]}, tolerance {LOGIT_ATOL}; cache leaves max "
+          f"|card - CPU| {({k: f'{e:.3g}' for k, (e, _) in state.items()})}, h within "
+          f"{SSD_TOL['state']['float32']}, conv/k/v within {LOGIT_ATOL}: "
+          f"{all(ok for _, ok in state.values())}")
+    check(max(errs) <= LOGIT_ATOL, f"model check zamba2-2.7b: card and CPU logits differ by "
+                                   f"{max(errs)}")
+    check(all(ok for _, ok in state.values()), f"model check zamba2-2.7b: caches differ {state}")
+
+
 # -- phase 5: serve the full configs -----------------------------------------
 
 
@@ -612,12 +800,14 @@ def serve(torch, arch: str) -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import mlstm
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Request, ServingEngine
 
     cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
     xlstm = cfg.family == "ssm"
+    hybrid = cfg.family == "hybrid"
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -649,7 +839,8 @@ def serve(torch, arch: str) -> dict:
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=64)
             for n in lengths]
 
-    dec.launches = fla.launches = gmm.launches = mlstm.launches = 0   # this model's run starts here
+    # this model's run starts here
+    dec.launches = fla.launches = gmm.launches = mlstm.launches = ssd.launches = 0
     t0 = time.perf_counter()
     out = eng.run(reqs)
     torch.cuda.synchronize()
@@ -696,15 +887,19 @@ def serve(torch, arch: str) -> dict:
           f"sampled request: {sampled}")
     torch.cuda.synchronize()
     launches = {"decode_attention": dec.launches, "flash_attention": fla.launches,
-                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches}
+                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches,
+                "mamba2_ssd": ssd.launches}
     admissions = 16 + len(block) + n_long + 1
     steps = eng.steps_dispatched
-    L_attn = 0 if xlstm else cfg.num_layers          # attention layers
+    # attention layers (zamba2: applications of the shared block)
+    L_attn = (0 if xlstm else cfg.num_layers // cfg.ssm.attn_every if hybrid
+              else cfg.num_layers)
     per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
     L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
+    L_ssd = cfg.num_layers if hybrid else 0
     expected = {"decode_attention": L_attn * steps, "flash_attention": L_attn * admissions,
                 "grouped_matmul": 3 * L_attn * (steps + admissions) if cfg.moe else 0,
-                "mlstm": L_mlstm * admissions}
+                "mlstm": L_mlstm * admissions, "mamba2_ssd": L_ssd * admissions}
     check(launches == expected,
           f"{arch} launches {launches} != {expected} ({cfg.num_layers} layers, {steps} steps, "
           f"{admissions} admissions)")
@@ -831,10 +1026,11 @@ def main() -> int:
         check_model(torch, arch)
         release(torch)
         print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_xlstm(torch)
-    release(torch)
-    print(f"model check xlstm-1.3b took {time.perf_counter() - t0:.1f} s")
+    for arch, run in (("xlstm-1.3b", check_xlstm), ("zamba2-2.7b", check_zamba2)):
+        t0 = time.perf_counter()
+        run(torch)
+        release(torch)
+        print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
     served = {}
     for arch in SERVED:
         t0 = time.perf_counter()
@@ -855,10 +1051,11 @@ def main() -> int:
         }
         if rec["library_ms"] is None:
             entry["library"] = rec["library"]
-        if f"{name}_prefill" in records:
-            pre = records[f"{name}_prefill"]
-            entry["prefill"] = {key: pre[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for key, rec in records.items():   # the same kernel at other timed shapes
+            if key.startswith(f"{name}_"):
+                entry[key[len(name) + 1:]] = {k: rec[k] for k in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     for stats in served.values():

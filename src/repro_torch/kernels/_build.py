@@ -137,3 +137,13 @@ def check_inputs(name: str, tensors) -> int:
         raise ValueError(f"{name} kernel needs a unit last-dim stride and "
                          "16-byte aligned rows")
     return DTYPE_CODES[first.dtype]
+
+
+def check_aux(name: str, like, tensors, dtype, what: str) -> None:
+    """Raise unless every tensor of ``tensors`` (operands a kernel reads in
+    a dtype of their own, such as float32 gates or states) is ``dtype`` on
+    ``like``'s device."""
+    for t in tensors:
+        if t.device != like.device or t.dtype != dtype:
+            raise TypeError(f"{name} {what} must be {dtype} on {like.device}, "
+                            f"got {t.dtype} on {t.device}")

@@ -13,8 +13,11 @@
 //    from the model's (B, S, Hkv, d) cache with no transpose;
 //  * 128-key tiles of K and V go to shared memory as float32; thread j
 //    scores key j against every query head, one warp per head updates the
-//    running max/sum, and thread (g, c) accumulates output column c of head
-//    g; the tile loop stops at lengths[b].
+//    running max/sum, and output element e = g * d + c of the group (column
+//    c of head g) is accumulated by thread e % 128: with d dividing 128 that
+//    is column tid % d of heads tid / d, tid / d + 128 / d, ...; with d = 80
+//    (zamba2's shared block) a thread holds columns of several heads; the
+//    tile loop stops at lengths[b].
 #include "common.cuh"
 
 namespace ham {
@@ -43,10 +46,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   constexpr int VN = Vec<T>::N;        // elements per 16-byte vector
   constexpr int VPR = D / VN;          // vectors per row
   constexpr int KS = D + kPad;         // K-tile row stride
-  constexpr int GS = kThreads / D;     // query heads side by side in the PV phase
-  constexpr int R = kMaxQpk / GS;      // output accumulators per thread
+  constexpr bool kSplit = kThreads % D == 0;  // D divides the block: one column per thread
+  constexpr int R = (kMaxQpk * D + kThreads - 1) / kThreads;  // output accumulators per thread
   constexpr int kVecs = kBlockK * VPR; // vectors per K (or V) tile
-  static_assert(kThreads % D == 0 && D % VN == 0 && kBlockK == kThreads, "tile shape");
+  static_assert(D % VN == 0 && D % 4 == 0 && kBlockK == kThreads, "tile shape");
 
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kMaxQpk][D], scaled
@@ -75,7 +78,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     l_s[tid] = 0.f;
   }
 
-  const int col = tid % D, g0 = tid / D;
+  // accumulator r holds output element e = tid + r * kThreads: head e / D, column e % D
+  const auto head = [tid](int r) { return (tid + r * kThreads) / D; };
+  const auto column = [tid](int r) { return (tid + r * kThreads) % D; };
   const int warp = tid / 32, lane = tid % 32;
   float acc[R];
 #pragma unroll
@@ -173,18 +178,34 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int jmax = min(kBlockK, len - k0);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int g = g0 + r * GS;
+      const int g = head(r);
       if (g < qpk) acc[r] *= a_s[g];
     }
-    for (int j = 0; j < jmax; j += 4) {
-      const float v0 = vs[j * D + col], v1 = vs[(j + 1) * D + col];
-      const float v2 = vs[(j + 2) * D + col], v3 = vs[(j + 3) * D + col];
+    if constexpr (kSplit) {
+      // every accumulator of a thread is the same column: read V once per key
+      const int col = tid % D;
+      for (int j = 0; j < jmax; j += 4) {
+        const float v0 = vs[j * D + col], v1 = vs[(j + 1) * D + col];
+        const float v2 = vs[(j + 2) * D + col], v3 = vs[(j + 3) * D + col];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int g = g0 + r * GS;
-        if (g < qpk) {
-          const float4 p = *reinterpret_cast<const float4*>(ps + g * kBlockK + j);
-          acc[r] += p.x * v0 + p.y * v1 + p.z * v2 + p.w * v3;
+        for (int r = 0; r < R; ++r) {
+          const int g = head(r);
+          if (g < qpk) {
+            const float4 p = *reinterpret_cast<const float4*>(ps + g * kBlockK + j);
+            acc[r] += p.x * v0 + p.y * v1 + p.z * v2 + p.w * v3;
+          }
+        }
+      }
+    } else {
+      for (int j = 0; j < jmax; j += 4) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int g = head(r), col = column(r);
+          if (g < qpk) {
+            const float4 p = *reinterpret_cast<const float4*>(ps + g * kBlockK + j);
+            acc[r] += p.x * vs[j * D + col] + p.y * vs[(j + 1) * D + col] +
+                      p.z * vs[(j + 2) * D + col] + p.w * vs[(j + 3) * D + col];
+          }
         }
       }
     }
@@ -193,10 +214,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int g = g0 + r * GS;
+    const int g = head(r);
     if (g < qpk) {
       const float l = fmaxf(l_s[g], 1e-30f);
-      store(out + b * o_sb + h * o_sh + g * o_sg + col, acc[r] / l);
+      store(out + b * o_sb + h * o_sh + g * o_sg + column(r), acc[r] / l);
     }
   }
 }
@@ -221,6 +242,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, const int* leng
   switch (d) {
     case 32: return launch<T, 32>(q, k, v, lengths, out, B, Hkv, qpk, S, st, stream);
     case 64: return launch<T, 64>(q, k, v, lengths, out, B, Hkv, qpk, S, st, stream);
+    case 80: return launch<T, 80>(q, k, v, lengths, out, B, Hkv, qpk, S, st, stream);
     case 128: return launch<T, 128>(q, k, v, lengths, out, B, Hkv, qpk, S, st, stream);
     default: return kUnsupported;
   }

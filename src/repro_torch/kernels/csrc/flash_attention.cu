@@ -215,6 +215,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B,
   switch (d) {
     case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
     default: return kUnsupported;
   }

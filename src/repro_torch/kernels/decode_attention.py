@@ -33,7 +33,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 MAX_Q_PER_KV = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {

@@ -37,7 +37,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_flash_attention": [_P] * 4 + [_I] * 8 + [_L] * 12 + [_I, _P],

@@ -1,0 +1,120 @@
+"""Mamba2 SSD (state-space dual) chunked scan: a CUDA kernel written by hand
+for Hopper (``csrc/mamba2_ssd.cu``) beside its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/mamba2_ssd.py``
+(``_ssd_kernel`` and its wrapper ``ssd_chunked_kernel``): per (sequence,
+head), chunks of L positions run in order carrying the float32 state h
+(N x P); inside a chunk, with Lc the inclusive cumsum of log lambda = A dt,
+the output is the decay-weighted causal (C.B^T) tile times x plus
+exp(Lc) C h_prev, and h takes the chunk's decayed B x^T outer products.
+
+What bounds it on an H100: a zamba2-2.7b admission of 1024 tokens (80
+heads, P = N = 64, one B/C group, L = 256) does 6.7 GFLOP, counted as the
+TPU kernel's work, on 22.9 MB, about 6.8 us on either count.  What the
+design does about it, in this first, simple version:
+
+* one block per (head, sequence) walks the chunks in order with h in
+  shared memory (16 KB), the L x L product in 64 x 64 tiles on and below
+  the diagonal only, so the decay exponent is never evaluated where it is
+  positive (the reference masks after ``exp``, which in CUDA would turn an
+  overflow into inf * 0 = NaN);
+* x, B and C are read through strides from the model's conv output, the
+  group of head h being ``h // (H // G)``: the reference wrapper's head
+  repeat of B and C (an 80x copy at one group) and its transposes are never
+  made, and y is written in the model's ``(B, S, H, P)`` layout;
+* A dt is formed in the kernel, and the D x skip is fused into the
+  epilogue with y rounded once, as the reference model's plain
+  ``ssd_chunked`` does (its kernel wrapper rounds y, then adds D x);
+* any S is taken: positions past S in the last chunk read x = B = C = 0 and
+  dt = 0 (log decay 0, weight 0), which leaves y and h exact, so the model
+  calls it with ``chunk = min(chunk_size, S)`` and a prime prompt length
+  never degenerates to chunk 1.
+
+The products run on the CUDA cores in float32; the chunk-parallel split,
+tensor-core tiles and TMA are later work.  The plain version keeps the
+reference's chunk rule: the chunk shrinks until it divides S.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import divisor_chunk, ssd_chunk_ref
+
+STATE_DIM = 64   # N
+HEAD_DIM = 64    # P
+MAX_CHUNK = 256  # csrc/mamba2_ssd.cu kMaxL: one position per thread in the scan
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "ham_ssd_chunked": [_P] * 9 + [_I] * 9 + [_L] * 15 + [_I, _P],
+}
+
+#: kernel launches made by :func:`ssd_chunked` (plain calls not counted)
+launches = 0
+
+
+def ssd_chunked_plain(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
+    """The plain PyTorch version of :func:`ssd_chunked`: the port's
+    ``models.mamba2.ssd_chunked`` with the chunk shrunk to divide S."""
+    return ssd_chunk_ref(x, dt, A, Bm, Cm, D, state, chunk=divisor_chunk(chunk, x.shape[1]))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
+    """Model layout: x (B, S, H, P); dt (B, S, H) float32; A, D (H,)
+    float32; Bm, Cm (B, S, G, N) with H % G == 0, x/Bm/Cm any strides with
+    a unit last dim; state h (B, H, N, P) float32 or None for the empty
+    state.  Returns (y (B, S, H, P) in x's dtype with the D x skip added,
+    final h float32).
+
+    CPU tensors take the plain version (chunk shrunk to divide S); CUDA
+    tensors launch the kernel with chunk ``min(chunk, S)`` and a masked
+    ragged tail.
+    """
+    if x.device.type == "cpu":
+        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+    return _launch(x, dt, A, Bm, Cm, D, state, chunk)
+
+
+def _launch(x, dt, A, Bm, Cm, D, state, chunk):
+    global launches
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    dtype = _build.check_inputs("ssd", (x, Bm, Cm, y))
+    if (Bm.shape != (B, S, G, N) or Cm.shape != Bm.shape or dt.shape != (B, S, H)
+            or A.shape != (H,) or D.shape != (H,) or H % G):
+        raise ValueError(f"ssd shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A {tuple(A.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} D {tuple(D.shape)}")
+    if (N, P) != (STATE_DIM, HEAD_DIM):
+        raise ValueError(f"ssd kernel takes state_dim {STATE_DIM} and head_dim {HEAD_DIM}, "
+                         f"got {N}, {P}")
+    # dt is read as scalars through strides; A and D as (H,) vectors
+    _build.check_aux("ssd", x, (dt, A, D), torch.float32, "dt, A and D")
+    if not (A.is_contiguous() and D.is_contiguous()):
+        raise ValueError("ssd A and D must be contiguous")
+    if chunk < 1:
+        raise ValueError(f"ssd chunk must be positive, got {chunk}")
+    L = min(chunk, S)
+    if L > MAX_CHUNK:
+        raise ValueError(f"ssd kernel takes chunks of at most {MAX_CHUNK}, got {L}")
+    hN = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    if state is not None:
+        _build.check_aux("ssd", x, (state,), torch.float32, "state")
+        if tuple(state.shape) != (B, H, N, P) or not state.is_contiguous():
+            raise ValueError(f"ssd state must be contiguous (B, H, N, P) = {(B, H, N, P)}, "
+                             f"got {tuple(state.shape)}")
+    h0 = state if state is not None else hN   # not read without a state
+    lib = _build.library("mamba2_ssd", _SIGNATURES)
+    err = lib.ham_ssd_chunked(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), hN.data_ptr(),
+        B, S, H, G, N, P, L, int(state is not None), dtype,
+        *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], *y.stride()[:3],
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "ssd")
+    launches += 1
+    return y, hN

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mlstm_chunk_ref
+from repro_torch.kernels.ref import divisor_chunk, mlstm_chunk_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -54,20 +54,11 @@ _TILE = 64  # csrc/mlstm.cu kT: the chunk is padded to a multiple of it
 launches = 0
 
 
-def _divisor_chunk(chunk: int, S: int) -> int:
-    """The reference model's chunk: ``min(chunk, S)``, shrunk until it
-    divides S (``repro/models/xlstm.py:257-260``)."""
-    L = min(chunk, S)
-    while S % L:
-        L -= 1
-    return L
-
-
 def mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state=None, *, chunk):
     """The plain PyTorch version of :func:`mlstm_chunked_heads`."""
     t = lambda a: a.transpose(1, 2)   # (B, H, S, ...) -> the model's (B, S, H, ...)
     h, st = mlstm_chunk_ref(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
-                            chunk=_divisor_chunk(chunk, q.shape[2]))
+                            chunk=divisor_chunk(chunk, q.shape[2]))
     return t(h), st
 
 
@@ -106,13 +97,6 @@ def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
     return _launch(q, k, v, i_pre, f_pre, state, chunk, out)
 
 
-def _check_aux(q, tensors, dtype, what):
-    for t in tensors:
-        if t.device != q.device or t.dtype != dtype:
-            raise TypeError(f"mlstm {what} must be {dtype} on {q.device}, "
-                            f"got {t.dtype} on {t.device}")
-
-
 def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
     global launches
     B, H, S, dk = q.shape
@@ -125,7 +109,7 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
         raise ValueError(f"mlstm shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} gates {tuple(i_pre.shape)}")
     # the kernel reads the gates as scalars through strides
-    _check_aux(q, (i_pre, f_pre), q.dtype, "gates")
+    _build.check_aux("mlstm", q, (i_pre, f_pre), q.dtype, "gates")
     if chunk < 1:
         raise ValueError(f"mlstm chunk must be positive, got {chunk}")
     L = min(chunk, S)
@@ -134,7 +118,7 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
     C, n, m = (torch.empty((B, H, dk, dv), **f32), torch.empty((B, H, dk), **f32),
                torch.empty((B, H), **f32))
     if state is not None:
-        _check_aux(q, state, torch.float32, "state")
+        _build.check_aux("mlstm", q, state, torch.float32, "state")
         if (tuple(state[0].shape), tuple(state[1].shape), tuple(state[2].shape)) != (
                 (B, H, dk, dv), (B, H, dk), (B, H)) or not all(s.is_contiguous() for s in state):
             raise ValueError("mlstm state must be contiguous (C (B,H,dk,dv), n (B,H,dk), m (B,H))")

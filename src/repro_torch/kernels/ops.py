@@ -8,6 +8,10 @@ allocate the output in the model's layout.  The MoE layer's dispatched
 tokens carry a group dim, ``(G, E, C, d)``, which the grouped-matmul kernel
 folds into its capacity dim.  The mLSTM kernel reads q/k/v and the gates
 of the model's ``(B, S, H, ...)`` layout in place and writes h into it.
+The SSD kernel reads x, B and C as strided views of the Mamba2 block's conv
+output, indexes B/C groups per head itself (the reference wrapper repeated
+them per head and transposed everything) and fuses the D x skip, rounding y
+once as the reference model does.
 
 A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
 kernel (each kernel module keeps its launch counter).
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import grouped_matmul as gmm
+from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import mlstm as _mlstm
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_heads
@@ -66,3 +71,12 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
     _, st = _mlstm.mlstm_chunked_heads(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
                                        chunk=chunk, out=t(h))
     return h, st
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
+    """Model layout: x (B, S, H, P); dt (B, S, H) float32; A, D (H,)
+    float32; Bm, Cm (B, S, G, N); state h (B, H, N, P) float32 or None.
+    Returns (y (B, S, H, P) with the D x skip, h).  The kernel takes
+    ``chunk`` with a masked ragged tail; the plain version shrinks it to
+    divide S."""
+    return _ssd.ssd_chunked(x, dt, A, Bm, Cm, D, state, chunk=chunk)

@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles for the attention, grouped-matmul and mLSTM kernels
+"""Plain PyTorch oracles for the attention, grouped-matmul, mLSTM and SSD kernels
 (port of ``repro.kernels.ref``, same signatures and layouts).
 
 No tiling, no shared-memory reasoning — just the math, in float32, with the
@@ -61,3 +61,26 @@ def mlstm_recurrent_ref(q, k, v, i_pre, f_pre, state=None):
     from repro_torch.models.xlstm import mlstm_recurrent
 
     return mlstm_recurrent(q, k, v, i_pre, f_pre, state)
+
+
+def ssd_chunk_ref(x, dt, A, Bm, Cm, D, state=None, *, chunk):
+    """Oracle for the SSD kernel: the port's ``models.mamba2`` chunked
+    formulation in model layout (itself held against the recurrence)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    return ssd_chunked(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+
+
+def ssd_recurrent_ref(x, dt, A, Bm, Cm, D, state=None):
+    from repro_torch.models.mamba2 import ssd_recurrent
+
+    return ssd_recurrent(x, dt, A, Bm, Cm, D, state)
+
+
+def divisor_chunk(chunk: int, S: int) -> int:
+    """The reference models' chunk: ``min(chunk, S)``, shrunk until it
+    divides S (``repro/models/xlstm.py:257-260``, ``mamba2.py:195-197``)."""
+    L = min(chunk, S)
+    while S % L:
+        L -= 1
+    return L

@@ -1,5 +1,5 @@
-"""Unified model API (port of ``repro.models.api``): the dense, MoE and
-``ssm`` (xLSTM) branches.
+"""Unified model API (port of ``repro.models.api``): the dense, MoE,
+``ssm`` (xLSTM) and ``hybrid`` (Zamba2) branches.
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose members are
 plain functions over a param dict, bound to one device.  ``device=None``
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
+from repro_torch.models import zamba2 as Z
 from repro_torch.models.config import ModelConfig
 
 
@@ -39,9 +40,10 @@ class Model:
     prefill: Callable        # (params, batch) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch) -> (logits, cache), cache in place
     init_cache: Callable     # (batch_size, max_len) -> cache
-    #: the batch (slot) axis of every cache leaf: (L, B, S, Hkv, hd) KV
-    #: caches use 1, xLSTM states (G, M, B, ...) use 2
-    cache_batch_axis: int
+    #: the batch (slot) axis of the cache leaves: one int for every leaf,
+    #: or a tree shaped like the cache with one int per leaf.  (L, B, S,
+    #: Hkv, hd) KV caches use 1, xLSTM and Mamba2 states (G, M, B, ...) 2
+    cache_batch_axis: int | dict
 
 
 def tree_map(fn, tree, *rest):
@@ -56,9 +58,9 @@ def tree_map(fn, tree, *rest):
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and ssm only)"
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and hybrid only)"
         )
 
     def generator(seed):
@@ -74,6 +76,18 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             decode_step=lambda p, c, b: X.xlstm_decode_step(p, c, b, cfg),
             init_cache=lambda bs, ml: X.xlstm_init_cache(cfg, bs, ml, device=dev),
             cache_batch_axis=2,
+        )
+    if cfg.family == "hybrid":  # Zamba2
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: Z.zamba2_init(cfg, device=dev, generator=generator(seed)),
+            forward=lambda p, b: Z.zamba2_forward(p, b, cfg)[0],
+            prefill=lambda p, b: Z.zamba2_forward(p, b, cfg, return_cache=True),
+            decode_step=lambda p, c, b: Z.zamba2_decode_step(p, c, b, cfg),
+            init_cache=lambda bs, ml: Z.zamba2_init_cache(cfg, bs, ml, device=dev),
+            # Mamba2 states (G, per, B, ...), KV caches (G, B, S, Hkv, hd)
+            cache_batch_axis={"mamba": (2, 2), "attn_kv": {"k": 1, "v": 1}},
         )
     return Model(
         cfg=cfg,

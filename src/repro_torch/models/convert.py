@@ -17,13 +17,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import torch_dtype
 
 
-#: param leaves the reference keeps in float32 whatever ``param_dtype`` is
-#: (``repro/models/moe.py``: the router, so routing never rounds)
-FLOAT32_LEAVES = frozenset({"router"})
+#: param leaves the reference keeps in float32 whatever ``param_dtype`` is:
+#: the MoE router, so routing never rounds (``repro/models/moe.py``), and
+#: the Mamba2 decay and skip parameters (``repro/models/mamba2.py:146-151``)
+FLOAT32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D"})
 #: cache leaves the reference keeps in float32 whatever ``cfg.dtype`` is:
-#: the xLSTM cell states, mLSTM (C, n, m) and sLSTM (c, n, m), by their
-#: position in the state tuple (``repro/models/xlstm.py:287-292, :400-406``)
-FLOAT32_CACHE_LEAVES = {"mlstm": (0, 1, 2), "slstm": (1, 2, 3)}
+#: the xLSTM cell states, mLSTM (C, n, m) and sLSTM (c, n, m), and the
+#: Mamba2 SSM state h, by their position in the state tuple
+#: (``repro/models/xlstm.py:287-292, :400-406``, ``mamba2.py:220``)
+FLOAT32_CACHE_LEAVES = {"mlstm": (0, 1, 2), "slstm": (1, 2, 3), "mamba": (0,)}
 
 
 def _leaf(a, device, dtype):
@@ -53,8 +55,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
-    """Reference cache (numpy leaves: a KV cache ``{k, v}`` or the xLSTM
-    states) -> port cache on ``device``, in ``dtype`` (default the compute
+    """Reference cache (numpy leaves: a KV cache ``{k, v}``, the xLSTM
+    states or the Zamba2 ``{mamba, attn_kv}`` cache) -> port cache on ``device``, in ``dtype`` (default the compute
     dtype ``cfg.dtype``); the leaves the reference keeps in float32
     (``FLOAT32_CACHE_LEAVES``) stay float32."""
     def keep32(path):

@@ -61,7 +61,27 @@ def lm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     tensors on the device, one layer at a time: no float32 copy of a
     bfloat16 model is ever built."""
     dt = torch_dtype(cfg.param_dtype)
-    n, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    d, V = cfg.d_model, cfg.vocab_size
+
+    def normal_(t, scale):
+        return t.normal_(generator=generator).mul_(scale)
+
+    layers = layers_init(cfg, cfg.num_layers, device=device, generator=generator)
+    p = {
+        "embed": {"table": normal_(torch.empty((V, d), dtype=dt, device=device), 0.02)},
+        "layers": layers,
+        "final_norm": {"scale": torch.ones(d, dtype=dt, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": normal_(torch.empty((d, V), dtype=dt, device=device), d**-0.5)}
+    return p
+
+
+def layers_init(cfg: ModelConfig, n: int, *, device, generator: torch.Generator):
+    """``n`` transformer layers' params stacked on a leading dim, drawn as
+    :func:`lm_init` draws them (one layer at a time, in ``param_dtype``)."""
+    dt = torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
     H, Hk, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff
 
     def empty(*shape):
@@ -98,14 +118,7 @@ def lm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     else:
         layers["moe"] = _stack(n, lambda: moe_init(d, cfg.moe, dt, device=device,
                                                    generator=generator))
-    p = {
-        "embed": {"table": normal_(empty(V, d), 0.02)},
-        "layers": layers,
-        "final_norm": {"scale": ones(d)},
-    }
-    if not cfg.tie_embeddings:
-        p["head"] = {"w": normal_(empty(d, V), d**-0.5)}
-    return p
+    return layers
 
 
 def _stack(n: int, make):

@@ -10,7 +10,8 @@ sharing a payload::
 Step selection is an integer key that indexes the branch list (HAM's O(1)
 key dispatch).  Slots admit new requests by writing a prefilled prompt cache
 into the batch cache (continuous batching): every leaf of the cache tree,
-the prompt's prefix of a KV cache and the whole lane of a recurrent state.
+the prompt's prefix of a KV cache and the whole lane of a recurrent state,
+each along its own batch axis (``Model.cache_batch_axis``).
 
 Differences from the reference, all forced by PyTorch:
 
@@ -143,9 +144,11 @@ class ServingEngine:
             )
         tokens = torch.from_numpy(prompt[None, :]).to(self.device)
         logits, pcache = self.model.prefill(self.params, {"tokens": tokens})
-        t, axis = prompt.shape[0], self.model.cache_batch_axis
-        tree_map(lambda full, part: _insert(full, part, axis, slot),
-                 self.payload["cache"], pcache)
+        t, axes = prompt.shape[0], self.model.cache_batch_axis
+        if isinstance(axes, int):
+            axes = tree_map(lambda _, axis=axes: axis, pcache)
+        tree_map(lambda full, part, axis: _insert(full, part, axis, slot),
+                 self.payload["cache"], pcache, axes)
         first = logits[0, -1, :].argmax()
         self.payload["tokens"][slot, 0] = first
         self.payload["pos"][slot] = t

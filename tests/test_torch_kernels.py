@@ -44,6 +44,7 @@ def _close(port, jax_out, dtype, rtol=1e-2):
     (4, 4, 128, 128, False),
     (6, 3, 192, 32, True),
     (4, 4, 256, 128, True),   # q_per_kv = 1, d = 128: the olmoe/qwen2-moe heads
+    (4, 4, 192, 80, True),    # q_per_kv = 1, d = 80: zamba2's shared attention
 ])
 def test_flash_attention_matches_pallas(BH, BKV, S, d, causal, dtype):
     rng = np.random.default_rng(0)
@@ -62,6 +63,8 @@ def test_flash_attention_matches_pallas(BH, BKV, S, d, causal, dtype):
 @pytest.mark.parametrize("B,Hkv,qpk,S,d", [
     (2, 2, 4, 256, 64), (3, 1, 8, 128, 128), (2, 4, 1, 192, 64),
     (3, 4, 1, 192, 128),   # q_per_kv = 1, d = 128: the olmoe/qwen2-moe heads
+    (3, 4, 1, 192, 80),    # q_per_kv = 1, d = 80: zamba2's shared attention
+    (2, 2, 3, 128, 80),    # d = 80 with a query group
 ])
 def test_decode_attention_matches_pallas(B, Hkv, qpk, S, d, dtype):
     rng = np.random.default_rng(1)

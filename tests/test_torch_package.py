@@ -74,7 +74,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, params, num_slots=1, max_len=8)
     with pytest.raises(NotImplementedError):
-        build_model(get_reduced("zamba2-2.7b"), device="cpu")
+        build_model(get_reduced("whisper-large-v3"), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_reduced("xlstm-1.3b"))
 
@@ -83,9 +83,10 @@ def _launch_counts():
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import mlstm
 
-    return dec.launches, fla.launches, gmm.launches, mlstm.launches
+    return dec.launches, fla.launches, gmm.launches, mlstm.launches, ssd.launches
 
 
 def _call(kernel, device):
@@ -107,11 +108,15 @@ def _call(kernel, device):
     if kernel == "mlstm":
         qk, g = t(2, 37, 2, 16), t(2, 37, 2)
         return ops.mlstm_chunked(qk, qk, t(2, 37, 2, 32), g, g, chunk=8)[0]
+    if kernel == "mamba2_ssd":
+        bc, hd = t(2, 37, 2, 64), t(4)
+        return ops.ssd_chunked(t(2, 37, 4, 64), t(2, 37, 4).abs(), -hd.abs(), bc, bc, hd,
+                               chunk=8)[0]
     return ops.grouped_matmul(t(1, 4, 8, 32), t(4, 32, 16))
 
 
-KERNELS = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm"]
-KERNEL_IDS = ["decode", "flash", "grouped_matmul", "mlstm"]
+KERNELS = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm", "mamba2_ssd"]
+KERNEL_IDS = ["decode", "flash", "grouped_matmul", "mlstm", "ssd"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)

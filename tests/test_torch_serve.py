@@ -185,3 +185,42 @@ def test_prompt_longer_than_cache_rejected(engines):
     eng = port(num_slots=1, max_len=4)
     with pytest.raises(ValueError):
         eng.admit(Request(prompt=np.arange(5), max_new_tokens=2, rid=0), 0)
+
+
+# -- admission along each cache leaf's batch axis -----------------------------
+
+
+@pytest.mark.parametrize("arch,axes", [
+    ("llama3-405b", 1),          # KV caches (L, B, S, Hkv, hd)
+    ("olmoe-1b-7b", 1),
+    ("xlstm-1.3b", 2),           # states (G, M, B, ...)
+    ("zamba2-2.7b", {"mamba": (2, 2), "attn_kv": {"k": 1, "v": 1}}),
+])
+def test_admission_writes_each_leaf_along_its_batch_axis(arch, axes):
+    """Admission into slot 1 of 3 over a cache of random values: every leaf
+    gets the prefill's lane (a KV cache its prompt prefix) along its own
+    batch axis, and nothing else changes.  Dense, MoE and xLSTM keep one int
+    for every leaf, so their admission is the one they had; Zamba2 mixes
+    axis 2 (Mamba2 states) and axis 1 (KV caches)."""
+    from repro_torch.models.api import tree_map
+
+    m = build_model(get_reduced(arch), device="cpu")
+    assert m.cache_batch_axis == axes
+    p = m.init(seed=0)
+    eng = ServingEngine(m, p, num_slots=3, max_len=16, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tree_map(lambda t: t.copy_(torch.randn(t.shape, generator=g)), eng.payload["cache"])
+    before = tree_map(torch.clone, eng.payload["cache"])
+    prompt = np.arange(7) % 128
+    eng.admit(Request(prompt=prompt, max_new_tokens=2, rid=0), 1)
+    _, pcache = m.prefill(p, {"tokens": torch.from_numpy(prompt[None])})
+    per_leaf = axes if isinstance(axes, dict) else tree_map(lambda _: axes, pcache)
+
+    def check(full, old, part, axis):
+        src = part.select(axis, 0)
+        prefix = tuple(slice(0, n) for n in src.shape)
+        want = old.clone()
+        want.select(axis, 1)[prefix] = src
+        assert torch.equal(full, want)
+
+    tree_map(check, eng.payload["cache"], before, pcache, per_leaf)
