@@ -12,10 +12,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
    serving shapes of internlm2-20b, olmoe-1b-7b, xlstm-1.3b and zamba2-2.7b
-   (and qwen2-moe's expert width), float32 and bfloat16, and time kernel,
-   plain version and, where one exists, the one-call PyTorch yardstick
-   (``scaled_dot_product_attention``, ``torch.bmm``; none computes mLSTM or
-   SSD);
+   (and qwen2-moe's expert width), float32 and bfloat16 (decode attention
+   also at each cluster size it splits the cache into, with splits left
+   empty), and time kernel, plain version and, where one exists, the
+   one-call PyTorch yardstick (``scaled_dot_product_attention``,
+   ``torch.bmm``; none computes mLSTM or SSD);
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
    width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
    zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
@@ -164,11 +165,24 @@ def check(ok: bool, msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events).
+
+    The device first spins (``torch.cuda._sleep``) for 1.5x as long as the
+    host took to run the ``reps`` calls once, at up to 2 GHz, so the host has
+    enqueued them all before the start event: the events bracket the device's
+    work alone.  Without the spin, a kernel that takes less time than its
+    Python wrapper (the attention kernels at their serving shapes) would be
+    timed at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * host_s * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -185,6 +199,28 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 def max_err(torch, a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def ptxas_summary(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers line, spill line) for each kernel of an ``nvcc
+    -Xptxas -v`` log, the kernel names demangled where ``c++filt`` exists."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, line.split("Used", 1)[1].strip(), spill))
+            name, spill = None, ""
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                                   capture_output=True, text=True, timeout=60).stdout.split("\n")
+        rows = [(d.replace("(anonymous namespace)::", "").split("(")[0], r, s)
+                for d, (_, r, s) in zip(demangled, rows)]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 
@@ -328,6 +364,7 @@ def check_kernels(torch) -> dict:
     """Phase 3.  Returns the timed record of each kernel at its serving shape."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_heads_plain
@@ -346,12 +383,19 @@ def check_kernels(torch) -> dict:
         (3, 2, 4, 300, 64, dt, [1, 150, 300]) for dt in ("bfloat16", "float32")
     ] + [(2, 1, 8, 100, 32, "float32", [37, 100])] + [
         (8, 32, 1, 2048, 80, dt, zamba2_lengths) for dt in ("bfloat16", "float32")  # zamba2
-    ] + [(2, 2, 3, 300, 80, "float32", [1, 300])]
+    ] + [(2, 2, 3, 300, 80, "float32", [1, 300]), (2, 1, 8, 100, 32, "bfloat16", [37, 100])]
+    # one case per cluster size: B * Hkv picked so that num_splits gives it,
+    # lengths leaving some splits empty (1, 37, just under S / splits) and >= S
+    for splits in dec.SPLITS:
+        Hkv = max(1, dec.TARGET_BLOCKS // splits // 4)
+        check(dec.num_splits(4 * Hkv) == splits, f"no B * Hkv gives {splits} splits")
+        decode_cases += [(4, Hkv, 4, 1024, 128, dt, [1, 37, 1024 // splits - 1, 5000])
+                         for dt in ("bfloat16", "float32")]
     for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(decode_cases):
         _, got, want = decode_case(torch, B, Hkv, qpk, S, d, dt, lens, seed=i)
         err = max_err(torch, got, want)
         print(f"decode_attention B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt} "
-              f"lengths={lens}: max_abs_err={err:.3g}")
+              f"lengths={lens} splits={dec.num_splits(B * Hkv)}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"decode_attention disagrees with its plain version: {err}")
 
     flash_cases = [
@@ -366,7 +410,12 @@ def check_kernels(torch) -> dict:
         (1, 4, 4, 96, 32, "float32", False),
     ] + [
         (1, 32, 32, S, 80, dt, True) for S in (1024, 333) for dt in ("bfloat16", "float32")
-    ]  # zamba2's shared attention, d = 80
+    ] + [  # zamba2's shared attention, d = 80; then bf16 at d = 64, 32 and d = 80 non-causal
+        (2, 8, 2, 200, 64, "bfloat16", True),
+        (1, 4, 4, 96, 32, "bfloat16", False),
+        (1, 4, 4, 96, 32, "bfloat16", True),
+        (1, 32, 32, 333, 80, "bfloat16", False),
+    ]
     for i, (B, H, Hkv, S, d, dt, causal) in enumerate(flash_cases):
         _, got, want = flash_case(torch, B, H, Hkv, S, d, dt, causal, seed=100 + i)
         err = max_err(torch, got, want)
@@ -413,8 +462,9 @@ def check_kernels(torch) -> dict:
 
     records = {}
     # decode at the serving shapes, whole cache valid (the 2048-position
-    # bound): internlm2-20b, and zamba2-2.7b's shared block at d = 80
+    # bound): internlm2-20b, olmoe-1b-7b, and zamba2-2.7b's shared block at d = 80
     for key, (B, Hkv, qpk, S, d) in (("decode_attention", (8, 8, 6, 2048, 128)),
+                                     ("decode_attention_olmoe", (8, 16, 1, 2048, 128)),
                                      ("decode_attention_zamba2", (8, 32, 1, 2048, 80))):
         (q, k, v, lens), got, want = decode_case(
             torch, B, Hkv, qpk, S, d, "bfloat16", [S] * B, seed=7)
@@ -430,14 +480,19 @@ def check_kernels(torch) -> dict:
             plain_ms=time_ms(torch, lambda: decode_attention_plain(q4, kt, vt, lens), 20),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, kt, vt, attn_mask=mask, enable_gqa=True), 50),
-            shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}",
+            shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}, "
+                  f"splits={dec.num_splits(B * Hkv)}",
             library="sdpa",
+            # the evidence for num_splits: the kernel at every cluster size
+            ms_by_splits={s: time_ms(torch, lambda s=s: dec._launch(q4, kt, vt, lens, splits=s),
+                                     50) for s in dec.SPLITS},
         )
         records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
 
     # flash at the largest admission prefill, one prompt of 1024 tokens:
-    # internlm2-20b, and zamba2-2.7b's shared block at d = 80
+    # internlm2-20b, olmoe-1b-7b, and zamba2-2.7b's shared block at d = 80
     for key, (B, H, Hkv, S, d) in (("flash_attention", (1, 48, 8, 1024, 128)),
+                                   ("flash_attention_olmoe", (1, 16, 16, 1024, 128)),
                                    ("flash_attention_zamba2", (1, 32, 32, 1024, 80))):
         (q, k, v), got, want = flash_case(torch, B, H, Hkv, S, d, "bfloat16", True, seed=8)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
@@ -523,6 +578,9 @@ def check_kernels(torch) -> dict:
         print(f"{name} timed at {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, {rec['library']} {lib}, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        if "ms_by_splits" in rec:
+            print(f"{name} ms by cluster size (splits): " + ", ".join(
+                f"{s}: {ms:.4f}" for s, ms in rec["ms_by_splits"].items()))
     return records
 
 
@@ -1014,9 +1072,8 @@ def main() -> int:
     _build.build(list(KERNELS))
     print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_summary(log):
+            print(f"  nvcc {name}: {kernel}: {regs}; {spill}")
 
     t0 = time.perf_counter()
     records = check_kernels(torch)

@@ -7,23 +7,43 @@
 // when causal.
 //
 // Bound on an H100: operations (a causal prefill of S=1024 over 48 heads of
-// d=128 does ~12.9 GFLOP on ~29 MB).  Design of this first version:
-//  * one block of 16x16 threads per (64-query tile, b*H + h); the q tile,
-//    one 64-key K and V tile and the 64x64 probability tile sit in shared
-//    memory as float32, the running max/sum and the 64 x d output
-//    accumulator in registers (each thread owns 4 rows x d/16 columns);
-//  * the key-tile loop stops at the causal diagonal (the Pallas kernel
-//    skipped those tiles with pl.when), and query tiles with the most key
-//    tiles are launched first;
+// d=128 does ~12.9 GFLOP on ~29 MB: 13 us at the bf16 tensor-core peak, 9 us
+// of bytes).  bf16, the serving path, is FlashAttention-2 on the tensor
+// cores:
+//  * one block per (b*H + h, query tile), 16 query rows a warp: 8 warps and
+//    128 rows at d >= 80, 4 warps and 64 rows below (8 would spill there);
+//    the q tile comes to shared memory once and into registers as mma A
+//    fragments (ldmatrix), where it stays for the whole key loop;
+//  * 64-key K and V tiles stay bf16 and arrive by cp.async in a 3-stage
+//    ring, the next two tiles loading while the current one is multiplied;
+//    rows are padded by 8 bf16 (16 bytes), so ldmatrix is free of bank
+//    conflicts; 139 KB at d = 128 (one block of 8 warps an SM), 90 KB at
+//    d = 80 (two);
+//  * S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, float32
+//    accumulators); P goes from the S accumulators straight into A
+//    fragments (two n8 tiles make one k16 fragment) and never touches shared
+//    memory; V comes in through ldmatrix.trans;
+//  * the online softmax runs on the accumulator fragments in the log2
+//    domain (exp2f, 1/sqrt(d) * log2 e folded into the scores), row max and
+//    sum reduced across each quad of lanes; masks apply only on the diagonal
+//    tile and the ragged tail, with the finite kNegInf;
+//  * the key loop stops at the causal diagonal, and the query tiles with the
+//    most key tiles are scheduled first, across all heads;
 //  * q/k/v/o go through (b, h, s) strides, so the model's (B, S, H, d)
-//    activations are read and written in place.
-// The products run on the CUDA cores in float32 (as the Pallas kernel's
-// upcast did); tensor-core tiles, TMA and warp specialisation come later.
+//    activations are read and written in place; o is staged through shared
+//    memory and stored in 16-byte vectors.
+// float32 runs a CUDA-core kernel (64 x 64 float32 tiles in shared memory,
+// 4 x 4 outputs a thread): the tensor cores take float32 only as TF32,
+// which misses the float32 tolerance.  wgmma, TMA and
+// warp specialisation are the next levers for bf16.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ham {
 namespace {
 
+// float32 kernel
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBQ = 64;        // queries per tile
 constexpr int kBK = 64;        // keys per tile
@@ -31,7 +51,7 @@ constexpr int kPad = 4;        // row padding (floats): conflict-free float4 row
 constexpr int kChunk = 4;      // 16-byte loads in flight per thread and tensor
 
 template <int D>
-constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + kPad) + kBK * (D + kPad) + kBK * D + kBQ * (kBK + kPad));
 }
 
@@ -66,7 +86,7 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src, 
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int H, int Hkv, int S, int Skv, int causal,
              int64_t q_sb, int64_t q_sh, int64_t q_ss,
              int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -195,17 +215,226 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+// bf16 kernel: 16 query rows a warp; 8 warps a block at d >= 80 (a K/V tile
+// read from L2 serves 128 rows), 4 below (where 8 would spill)
+constexpr int kKeys = 64;    // keys per K/V tile
+constexpr int kStages = 3;   // cp.async ring depth
+
+template <int D>
+__host__ __device__ constexpr int warps16() { return D >= 80 ? 8 : 4; }
+template <int D>
+__host__ __device__ constexpr size_t smem16() {
+  return sizeof(__nv_bfloat16) * (D + 8) * (16 * warps16<D>() + 2 * kKeys * kStages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * warps16<D>())
+flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
+                  int Hkv, int S, int Skv, int causal,
+                  int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                  int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                  int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                  int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2) {
+  using T = __nv_bfloat16;
+  constexpr int RS = D + 8;               // tile row (bf16): 16 bytes of padding
+  constexpr int NTH = 32 * warps16<D>();  // threads a block
+  constexpr int RQ = 16 * warps16<D>();   // query rows a block
+  constexpr int CH = D / 8;               // 16-byte vectors a row
+  constexpr int KD = D / 16;              // k16 steps over d
+  constexpr int NT = kKeys / 8;           // n8 score tiles a warp
+  static_assert(D % 16 == 0, "head_dim");
+
+  extern __shared__ float4 smem4[];
+  T* qs = reinterpret_cast<T*>(smem4);  // [RQ][RS]; each warp's rows hold its o at the end
+  T* ks = qs + RQ * RS;                 // [kStages][kKeys][RS]
+  T* vs = ks + kStages * kKeys * RS;    // [kStages][kKeys][RS]
+
+  const int iq = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heaviest first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int q0 = iq * RQ;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const T* vb = v + b * v_sb + hk * v_sh;
+
+  // rows [row0, row0 + rows) of src -> dst[rows][RS] by cp.async; rows at
+  // or past `valid` are zero-filled and read nothing
+  const auto load_rows = [tid](T* dst, const T* src, int64_t s_stride, int row0, int rows,
+                               int valid) {
+    for (int idx = tid; idx < rows * CH; idx += NTH) {
+      const int r = idx / CH, c = (idx % CH) * 8;
+      const bool ok = row0 + r < valid;
+      cp_async16(dst + r * RS + c, ok ? src + (row0 + r) * s_stride + c : src, ok ? 16 : 0);
+    }
+  };
+
+  const int q_last = min(q0 + RQ, S) - 1;
+  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int nk = (k_end + kKeys - 1) / kKeys;
+
+  load_rows(qs, qb, q_ss, q0, RQ, S);  // in the first group, with key tile 0
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) {
+      load_rows(ks + st * kKeys * RS, kb, k_ss, st * kKeys, kKeys, Skv);
+      load_rows(vs + st * kKeys * RS, vb, v_ss, st * kKeys, kKeys, Skv);
+    }
+    cp_async_commit();
+  }
+
+  const int wq = q0 + 16 * warp;  // this warp's first query row
+  const int r0 = wq + lane / 4;   // row of accumulator elements 0, 1 (2, 3: r0 + 8)
+  T* qw = qs + 16 * warp * RS;    // this warp's rows of qs
+  unsigned qf[KD][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and q) have landed ...
+    __syncthreads();               // ... for every thread, and tile t - 1 is consumed
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], qw + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+    }
+    const int pf = t + kStages - 1;
+    if (pf < nk) {
+      load_rows(ks + (pf % kStages) * kKeys * RS, kb, k_ss, pf * kKeys, kKeys, Skv);
+      load_rows(vs + (pf % kStages) * kKeys * RS, vb, v_ss, pf * kKeys, kKeys, Skv);
+    }
+    cp_async_commit();
+    const T* kt = ks + (t % kStages) * kKeys * RS;
+    const T* vt = vs + (t % kStages) * kKeys * RS;
+    const int k0 = t * kKeys;
+    if (causal && k0 > wq + 15) continue;  // warp-uniform: every key is past its rows
+
+    // S = Q K^T: 16 rows x 64 keys a warp; kf = {b0, b1} of key tiles 2 np, 2 np + 1
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned kf[4];
+        ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // element (j, e): key k0 + 8 j + 2 (lane % 4) + e % 2, row r0 + 8 (e / 2)
+    const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > wq);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1), row = r0 + 8 * (e >> 1);
+          if (key >= Skv || (causal && key > row)) s[j][e] = kNegInf;
+        }
+      }
+
+    // online softmax of rows r0 (hh = 0) and r0 + 8 (hh = 1) across the quad
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[hh], mx);
+      const float m_use = m_new == kNegInf ? 0.f : m_new;  // a row masked so far: p = 0
+      const float alpha = exp2f(m_i[hh] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_use);
+          sum += s[j][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_i[hh] = alpha * l_i[hh] + sum;
+      m_i[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * hh] *= alpha;
+        acc[j][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V: score tiles 2 kk, 2 kk + 1 are the A fragment of keys 16 kk ..
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, vt + (kk * 16 + (lane & 15)) * RS + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], a, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // o = acc / l into this warp's own rows of qs (only it read them), then
+  // 16-byte stores of the rows inside S
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l = fmaxf(l_i[hh], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<unsigned*>(qw + (lane / 4 + 8 * hh) * RS + 8 * j + 2 * (lane % 4)) =
+          pack_bf16(acc[j][2 * hh] / l, acc[j][2 * hh + 1] / l);
+  }
+  __syncwarp();
+  T* ob = o + b * o_sb + h * o_sh;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    if (wq + r < S)
+      *reinterpret_cast<uint4*>(ob + (wq + r) * o_ss + c) =
+          *reinterpret_cast<const uint4*>(qw + r * RS + c);
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
            int Skv, int causal, const long long* st, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, S, Skv, causal, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], 1.0f / sqrtf(static_cast<float>(D)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if constexpr (std::is_same_v<T, float>) {
+    auto kernel = flash_kernel_f32<T, D>;
+    cudaError_t err = allow_smem(kernel, smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+    kernel<<<grid, kThreads, smem_bytes<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), H, Hkv, S, Skv, causal, st[0], st[1], st[2], st[3], st[4], st[5],
+        st[6], st[7], st[8], st[9], st[10], st[11], scale);
+  } else {
+    auto kernel = flash_kernel_bf16<D>;
+    cudaError_t err = allow_smem(kernel, smem16<D>());
+    if (err != cudaSuccess) return err;
+    const int rows = 16 * warps16<D>();
+    const dim3 grid(B * H, (S + rows - 1) / rows);  // every head's heaviest tile first
+    kernel<<<grid, 32 * warps16<D>(), smem16<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), H, Hkv, S, Skv, causal, st[0], st[1], st[2], st[3], st[4], st[5],
+        st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+  }
   return cudaGetLastError();
 }
 

@@ -10,18 +10,24 @@ positions x 128 x bf16 x 2 = 67 MB, about 20 us at 3.35 TB/s) and does 4
 flops per cached element per query head, far below the tensor cores' line.
 What the design does about it:
 
-* one thread block per (sequence, kv head) holds all ``q_per_kv`` query
-  heads of the group, so each K/V element is read from device memory once
-  per group, not once per query head (the Pallas kernel's GQA property);
+* the valid cache of each (sequence, kv head) is split into
+  :func:`num_splits` ranges, one thread block each, so that about 128 blocks
+  keep the 132 SMs streaming; the blocks of one (sequence, kv head) form a
+  thread block cluster and merge their partial softmax states through
+  distributed shared memory inside the same launch (one launch per call, no
+  scratch); each block derives its range from ``lengths[b]`` on the device,
+  so the host never reads the lengths;
+* each block holds all ``q_per_kv`` query heads of the group, so each K/V
+  element is read from device memory once per group, not once per query
+  head (the Pallas kernel's GQA property);
 * K and V are read through strides straight from the model's
-  ``(B, S, Hkv, d)`` cache, in 16-byte vectors along ``d``: the reference's
-  layout wrapper transposed the whole cache on every call, which would
-  double the bytes moved;
-* the loop over 128-key tiles stops at ``lengths[b]``, so a short sequence
-  reads only its own prefix; the softmax is online in float32.
-
-Left for later work: splitting S across blocks (64 blocks fill half of the
-132 SMs at the serving shape) and asynchronous copies.
+  ``(B, S, Hkv, d)`` cache, in 16-byte ``cp.async`` copies into a 3-stage
+  ring of tiles kept in their own dtype, so loads overlap the math: the
+  reference's layout wrapper transposed the whole cache on every call,
+  which would double the bytes moved;
+* bf16 runs both products on the tensor cores (``mma.sync``, the group
+  padded to 16 rows), float32 on the CUDA cores; the softmax is online in
+  float32.
 """
 
 from __future__ import annotations
@@ -38,11 +44,29 @@ MAX_Q_PER_KV = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_decode_attention":
-        [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _P],
+        [_P] * 5 + [_I] * 7 + [_L] * 12 + [_I, _P],
 }
+
+#: cluster sizes the kernel takes (portable: at most 8 blocks a cluster)
+SPLITS = (1, 2, 4, 8)
+#: blocks a launch aims at: about one per SM of the H100's 132.  On the
+#: card more splits lose beyond that (each adds a block's prologue and a
+#: merge); ``chip_smoke.py`` times every cluster size at the serving shapes
+TARGET_BLOCKS = 128
 
 #: kernel launches made by :func:`decode_attention` (plain calls not counted)
 launches = 0
+
+
+def num_splits(groups: int) -> int:
+    """Blocks (one thread block cluster) per (sequence, kv head) for a call
+    over ``groups = B * Hkv`` of them: the fewest of :data:`SPLITS` that
+    reach :data:`TARGET_BLOCKS`, else the most.  Known on the host from the
+    shapes alone, so choosing it never waits for the device."""
+    for s in SPLITS:
+        if groups * s >= TARGET_BLOCKS:
+            return s
+    return SPLITS[-1]
 
 
 def decode_attention_plain(q, k, v, lengths):
@@ -67,7 +91,9 @@ def decode_attention(q, k, v, lengths):
     return _launch(q, k, v, lengths)
 
 
-def _launch(q, k, v, lengths):
+def _launch(q, k, v, lengths, splits=None):
+    """Launch the kernel; ``splits`` (one of :data:`SPLITS`) overrides
+    :func:`num_splits`, for timing the cluster sizes against each other."""
     global launches
     B, Hkv, qpk, d = q.shape
     S = k.shape[2]
@@ -86,7 +112,7 @@ def _launch(q, k, v, lengths):
     lib = _build.library("decode_attention", _SIGNATURES)
     err = lib.ham_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, Hkv, qpk, S, d, dtype,
+        out.data_ptr(), B, Hkv, qpk, S, d, dtype, splits or num_splits(B * Hkv),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )

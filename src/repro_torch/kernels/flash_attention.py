@@ -8,24 +8,29 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 What bounds it on an H100: operations.  A causal prefill of S=1024 over 48
 heads of d=128 is about 12.9 GFLOP on 29 MB of q/k/v/o, far above the
 card's 295 flops-per-byte line, so its bound is the tensor-core peak (about
-13 us at 989 TFLOP/s).  What the design does about it, in this first,
-simple version:
+13 us at 989 TFLOP/s).  What the design does about it, for bf16 (the
+serving path), FlashAttention-2 style:
 
-* one thread block per (batch*head, 64-query tile); q, the current 64-key
-  K and V tiles and the probability tile live in shared memory in float32
-  (about 118 KB at d=128 of the 227 KB a block may use), the running max,
-  sum and output accumulator in registers;
+* one thread block per (batch*head, query tile), 16 query rows a warp (8
+  warps and 128 rows at head_dim >= 80, 4 and 64 below); the q tile is
+  loaded once into registers as tensor-core fragments;
+* 64-key K and V tiles stay bf16 in a 3-stage ``cp.async`` ring in shared
+  memory, the next tiles loading while the current one is multiplied;
+* both products, S = q k^T and o += p v, run on the tensor cores
+  (``mma.sync`` m16n8k16, float32 accumulators), and p goes from the score
+  accumulators straight into the next product's operands;
 * the loop over key tiles stops at the causal diagonal (the Pallas kernel
-  skipped tiles above it with ``pl.when``), and the query tiles with the
-  most work are scheduled first;
+  skipped tiles above it with ``pl.when``), masks apply only on the diagonal
+  and the ragged tail, and the query tiles with the most work are scheduled
+  first;
 * GQA reads kv head ``h // q_per_kv`` (the Pallas kernel's
   ``bh // q_per_kv``), so repeated K/V are never materialised;
 * q/k/v/o are read and written through strides, so the model's
   ``(B, S, H, d)`` activations need no transpose copies.
 
-It multiplies on the CUDA cores in float32 (the Pallas kernel also upcast
-to float32), far from the tensor-core bound; ``mma``/``wgmma`` tiles, TMA
-and warp specialisation are later work.
+float32 runs a CUDA-core kernel (float32 tiles in shared memory): the
+tensor cores take float32 only as TF32, which would miss the float32
+tolerance.  ``wgmma``, TMA and warp specialisation are later work.
 """
 
 from __future__ import annotations
