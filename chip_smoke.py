@@ -16,14 +16,17 @@ Phases, in order; any failure raises and exits non-zero:
    also at each cluster size it splits the cache into, with splits left
    empty), and time kernel, plain version and, where one exists, the
    one-call PyTorch yardstick (``scaled_dot_product_attention``,
-   ``torch.bmm``; none computes mLSTM or SSD);
+   ``torch.bmm``; none computes mLSTM or SSD); each grouped-matmul and
+   mLSTM line names the route it took;
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
    width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
    zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
-   applications), float32 weights, prefill + 4 decode steps with the
-   kernels on the card against the plain path on the CPU (MoE routing
-   near-ties between the two are reported, not hidden; the recurrent states
-   are compared too);
+   applications), float32 weights (xlstm-1.3b also in bfloat16, its mLSTM
+   kernel's tensor-core route), prefill + 4 decode steps with the kernels
+   on the card against the plain path on the CPU (MoE routing near-ties
+   between the two are reported, not hidden; the recurrent states are
+   compared too; xlstm's first mLSTM layer is also held against the plain
+   mLSTM on the card, on the same activations);
 5. serve internlm2-20b, olmoe-1b-7b, xlstm-1.3b and zamba2-2.7b, each at its
    full published config in bfloat16 (seeded random weights): 16 greedy requests
    through ``run()``, a profiled window of decode steps, a ``step_many(16)``
@@ -69,18 +72,33 @@ LOGIT_ATOL = 1e-3  # float32 logits, card vs CPU: sums over d=6144/16384 in anot
 NEAR_TIE = 1e-5
 DEVICE = "cuda"  # where every phase runs; a CPU rehearsal of the phases may set "cpu"
 
-# (E, C, d, f, pad, what): pad > 0 reads x and w as strided views of wider
-# tensors with ragged edges
+# (E, C, d, f, view, what): view "pad" reads x and w as strided views of
+# tensors whose rows are padded to a multiple of 8 elements, with ragged
+# rows (d, f no multiples of 8: TMA reads zeros past the edge; an odd f
+# stores single elements); "layer" reads w as one layer's up half of stacked
+# (layers, E, d, 2f) expert weights
 GMM_CASES = [
-    (64, 8, 2048, 1024, 0, "olmoe decode gate/up"),
-    (64, 8, 1024, 2048, 0, "olmoe decode down"),
-    (64, 160, 2048, 1024, 0, "olmoe 1024-token prefill gate/up"),
-    (60, 8, 2048, 1408, 0, "qwen2-moe decode gate/up"),
-    (3, 5, 40, 24, 0, "small ragged"),
-    (3, 5, 38, 22, 2, "ragged strided views, skinny kernel"),
-    (3, 37, 38, 22, 2, "ragged strided views, tiled kernel"),
+    (64, 8, 2048, 1024, "", "olmoe decode gate/up"),
+    (64, 8, 1024, 2048, "", "olmoe decode down"),
+    (64, 160, 2048, 1024, "", "olmoe 1024-token prefill gate/up"),
+    (64, 37, 2048, 1024, "", "olmoe prefill, C = 37"),
+    (64, 200, 2048, 1024, "", "olmoe prefill, C = 200"),
+    (64, 160, 2048, 1024, "layer", "olmoe prefill on a layer slice of stacked weights"),
+    (64, 8, 2048, 1024, "layer", "olmoe decode on a layer slice of stacked weights"),
+    (60, 8, 2048, 1408, "", "qwen2-moe decode gate/up"),
+    (60, 160, 2048, 1408, "", "qwen2-moe prefill gate/up, f = 1408"),
+    (3, 5, 40, 24, "", "small ragged"),
+    (3, 5, 38, 22, "pad", "ragged strided views, decode"),
+    (3, 37, 38, 22, "pad", "ragged strided views, prefill"),
+    (3, 5, 38, 21, "pad", "ragged strided views, odd f, decode"),
+    (3, 37, 38, 21, "pad", "ragged strided views, odd f, prefill"),
 ]
-GMM_TIMED = {"decode": (64, 8, 2048, 1024), "prefill": (64, 160, 2048, 1024)}
+# timed shapes (E, C, d, f): olmoe's decode gate (the main path's regime: 48
+# calls per step) and down projection, and prefills of 64, 160 and 256 slots
+# (TTFT mixes them) at the gate and, at 160, the down projection
+GMM_TIMED = {"decode": (64, 8, 2048, 1024), "decode_down": (64, 8, 1024, 2048),
+             "prefill": (64, 160, 2048, 1024), "prefill_c64": (64, 64, 2048, 1024),
+             "prefill_c256": (64, 256, 2048, 1024), "prefill_down": (64, 160, 1024, 2048)}
 # arch -> (B, T, per-slot decode positions); MoE prompts keep B*T <= 256
 # tokens, one dropless group, so a routing near-tie cannot move other
 # tokens' capacity drops
@@ -107,6 +125,8 @@ MLSTM_CASES = [
     (1, 4, 1024, 512, 1024, 256, False, "xlstm-1.3b 1024-token admission"),
     (1, 4, 300, 512, 1024, 256, True, "ragged second chunk (256 + 44)"),
     (1, 4, 509, 512, 1024, 256, True, "prime length (256 + 253)"),
+    (1, 4, 512, 512, 1024, 256, False, "xlstm-1.3b 512-token admission"),
+    (2, 2, 200, 256, 256, 64, True, "B = 2, dk = dv = 256, chunks 3 x 64 + 8"),
     (3, 1, 37, 16, 32, 8, True, "small, BH = 3"),
 ]
 XLSTM_CHECK = (8, 2, 300)   # layers (one 7:1 group), batch, prompt: 256 + 44 on the card
@@ -134,6 +154,10 @@ SSD_CASES = [
     (1, 7, 8, 1, 256, False, False, "short prompt, one masked tile"),
 ]
 ZAMBA2_CHECK = (12, 2, 300)   # layers (2 groups of 6), batch, prompt: 256 + 44 on the card
+
+# how phase 3 names each grouped-matmul route (kernels/grouped_matmul.py `route`)
+GMM_ROUTES = {"wgmma": "TMA/wgmma", "stream": "TMA stream/mma.sync",
+              "skinny": "skinny (CUDA cores)", "tiled": "tiled (CUDA cores)"}
 
 KERNELS = {
     "decode_attention": {
@@ -189,6 +213,19 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host time of one call of ``fn`` (microseconds, the mean over ``n``
+    calls enqueued back to back): what a call costs a host-bound step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -262,17 +299,20 @@ def flash_case(torch, B, H, Hkv, S, d, dtype, causal, seed):
     return (q, k, v), got, want
 
 
-def gmm_case(torch, E, C, d, f, dtype, seed, pad=0):
+def gmm_case(torch, E, C, d, f, dtype, seed, view=""):
     """x ~ N(0, 1) and w ~ N(0, 1) / sqrt(d), as ``moe_init`` scales them,
-    so outputs are O(1); with ``pad`` both are strided views of wider
-    tensors.  Returns ((x, w), kernel result, plain result)."""
+    so outputs are O(1); ``view`` as in GMM_CASES.  Returns ((x, w), kernel
+    result, plain result)."""
     from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, dtype)
-    x = torch.randn(E, C, d + pad, generator=g, device=DEVICE).to(dt)[..., :d]
-    w = (torch.randn(E, d + pad, f + pad, generator=g, device=DEVICE)
-         / d**0.5).to(dt)[:, :d, :f]
+    dp, fp = (-(-d // 8) * 8, -(-f // 8) * 8) if view == "pad" else (d, f)
+    x = torch.randn(E, C, dp, generator=g, device=DEVICE).to(dt)[..., :d]
+    if view == "layer":
+        w = (torch.randn(2, E, d, 2 * f, generator=g, device=DEVICE) / d**0.5).to(dt)[1, :, :, f:]
+    else:
+        w = (torch.randn(E, dp, fp, generator=g, device=DEVICE) / d**0.5).to(dt)[:, :d, :f]
     got = grouped_matmul(x, w)
     want = grouped_matmul_plain(x, w)
     torch.cuda.synchronize()
@@ -353,6 +393,17 @@ def ssd_case(torch, B, S, H, G, chunk, with_state, views, dtype, seed):
     return xs, state, got, want
 
 
+def mlstm_passes_ms(torch, xs, chunk) -> dict:
+    """Device ms per call of each pass of the mLSTM kernel on model-layout
+    inputs ``xs`` (torch.profiler over 10 calls)."""
+    from repro_torch.kernels import ops
+
+    top = profile_window(torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), 10)[
+        "top_kernels_ms_per_call"]
+    return {p: sum(ms for k, ms in top.items() if p in k)
+            for p in ("gates_kernel", "state_tc", "output_tc")}
+
+
 def within(torch, got, want, tol) -> tuple[float, bool]:
     """(max |got - want|, whether every element is within (atol, rtol))."""
     atol, rtol = tol
@@ -365,6 +416,8 @@ def check_kernels(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mlstm
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_heads_plain
@@ -423,23 +476,24 @@ def check_kernels(torch) -> dict:
               f"causal={causal}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"flash_attention disagrees with its plain version: {err}")
 
-    for i, (E, C, d, f, pad, what) in enumerate(GMM_CASES):
+    for i, (E, C, d, f, view, what) in enumerate(GMM_CASES):
         for dt in ("bfloat16", "float32"):
-            _, got, want = gmm_case(torch, E, C, d, f, dt, seed=200 + i, pad=pad)
+            (x, w), got, want = gmm_case(torch, E, C, d, f, dt, seed=200 + i, view=view)
             err, ok = within(torch, got, want, GMM_TOL[dt])
-            print(f"grouped_matmul ({E},{C},{d})x({E},{d},{f}) {dt} {what}"
-                  f"{' (row pad ' + str(pad) + ')' if pad else ''}: max_abs_err={err:.3g}, "
+            print(f"grouped_matmul ({E},{C},{d})x({E},{d},{f}) {dt} {what}: route "
+                  f"{GMM_ROUTES[gmm.route(x, w)]}, max_abs_err={err:.3g}, "
                   f"within (atol, rtol)={GMM_TOL[dt]}: {ok}")
             check(ok, f"grouped_matmul disagrees with its plain version: {err}")
 
     print(f"mlstm |kernel - plain| <= atol + rtol |plain|, (atol, rtol) = {MLSTM_TOL}")
     for i, (B, H, S, dk, dv, chunk, with_state, what) in enumerate(MLSTM_CASES):
         for dt in ("bfloat16", "float32"):
-            _, _, (h, st), (hp, stp) = mlstm_case(torch, B, H, S, dk, dv, chunk, with_state,
-                                                  dt, seed=300 + i)
+            xs, _, (h, st), (hp, stp) = mlstm_case(torch, B, H, S, dk, dv, chunk, with_state,
+                                                   dt, seed=300 + i)
             err_h, ok_h = within(torch, h, hp, MLSTM_TOL["h"][dt])
             errs = [within(torch, a, b, MLSTM_TOL["state"][dt]) for a, b in zip(st, stp)]
-            print(f"mlstm B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} {dt} {what}"
+            print(f"mlstm B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} {dt} {what}, route "
+                  f"{mlstm.route(xs[0], xs[2]).replace('_', ' ')}"
                   f"{', initial state' if with_state else ''}: max_abs_err h={err_h:.3g} "
                   f"C={errs[0][0]:.3g} n={errs[1][0]:.3g} m={errs[2][0]:.3g}, within: "
                   f"{ok_h and all(ok for _, ok in errs)}")
@@ -510,9 +564,8 @@ def check_kernels(torch) -> dict:
         )
         records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
 
-    # grouped matmul at olmoe's decode gate (the main path's regime: 48
-    # calls per step) and at a 1024-token prefill's gate; each call streams
-    # 268 MB of weights, more than the 50 MB L2, so every call finds w cold
+    # grouped matmul at GMM_TIMED's shapes; a call streams 134-268 MB of
+    # weights, more than the 50 MB L2, so every call finds w cold
     for regime, (E, C, d, f) in GMM_TIMED.items():
         (x, w), got, want = gmm_case(torch, E, C, d, f, "bfloat16", seed=9)
         nbytes = 2 * (x.numel() + w.numel() + E * C * f)
@@ -522,33 +575,50 @@ def check_kernels(torch) -> dict:
             ms=time_ms(torch, lambda: grouped_matmul(x, w), 20),
             plain_ms=time_ms(torch, lambda: grouped_matmul_plain(x, w), 10),
             library_ms=time_ms(torch, lambda: torch.bmm(x, w), 20),
-            shape=f"({E},{C},{d})x({E},{d},{f}) bfloat16",
+            shape=f"({E},{C},{d})x({E},{d},{f}) bfloat16, route {GMM_ROUTES[gmm.route(x, w)]}",
             library="torch.bmm",
         )
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bfloat16")
+        # the host time of a call (a decode step is host-bound; the prefill
+        # route encodes x's tensor map on every call)
+        rec["host_us"] = host_us(torch, lambda: grouped_matmul(x, w))
         records["grouped_matmul" if regime == "decode" else f"grouped_matmul_{regime}"] = rec
 
-    # mLSTM at an xlstm-1.3b admission of 1024 tokens, empty state; the
+    # mLSTM at xlstm-1.3b admissions of 1024 and 512 tokens, empty state; the
     # work is counted as the TPU kernel's per (sequence*head, chunk): q.k^T
     # 2L^2 dk, scores.v 2L^2 dv, q.C 2L dk dv and the C update 2L dk dv
     from repro_torch.kernels.mlstm import mlstm_chunked_heads_plain
 
-    B, H, S, dk, dv, chunk, _, _ = MLSTM_CASES[0]
-    xs, _, (h, _), (hp, _) = mlstm_case(torch, B, H, S, dk, dv, chunk, False, "bfloat16", seed=10)
-    nc = -(-S // chunk)
-    flops = B * H * nc * (2 * chunk * chunk * (dk + dv) + 4 * chunk * dk * dv)
-    nbytes = 2 * (2 * B * S * H * dk + 2 * B * S * H * dv + 2 * B * S * H) + 4 * B * H * (
-        dk * dv + dk + 1)
-    heads = [x.transpose(1, 2) for x in xs]
-    records["mlstm"] = dict(
-        max_abs_err=max_err(torch, h, hp),
-        ms=time_ms(torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), 20),
-        plain_ms=time_ms(torch, lambda: mlstm_chunked_heads_plain(*heads, chunk=chunk), 5),
-        library_ms=None,
-        shape=f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} bfloat16, empty state",
-        library="none: no single PyTorch call computes mLSTM",
-    )
-    records["mlstm"]["bound_ms"], records["mlstm"]["bound_by"] = bound(nbytes, flops, "bfloat16")
+    for key, case in (("mlstm", MLSTM_CASES[0]), ("mlstm_s512", MLSTM_CASES[3])):
+        B, H, S, dk, dv, chunk, _, _ = case
+        xs, _, (h, _), (hp, _) = mlstm_case(torch, B, H, S, dk, dv, chunk, False, "bfloat16",
+                                            seed=10)
+        nc = -(-S // chunk)
+        flops = B * H * nc * (2 * chunk * chunk * (dk + dv) + 4 * chunk * dk * dv)
+        nbytes = 2 * (2 * B * S * H * dk + 2 * B * S * H * dv + 2 * B * S * H) + 4 * B * H * (
+            dk * dv + dk + 1)
+        heads = [x.transpose(1, 2) for x in xs]
+        records[key] = dict(
+            max_abs_err=max_err(torch, h, hp),
+            ms=time_ms(torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), 20),
+            plain_ms=time_ms(torch, lambda: mlstm_chunked_heads_plain(*heads, chunk=chunk), 5),
+            library_ms=None,
+            shape=f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} bfloat16, empty state, "
+                  f"route {mlstm.route(xs[0], xs[2]).replace('_', ' ')}",
+            library="none: no single PyTorch call computes mLSTM",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
+        records[key]["previous"] = {"route": "cuda cores", "ms": time_ms(   # same inputs
+            torch, lambda: mlstm._launch(*heads, None, chunk, None, kernel="cuda_cores"), 20)}
+        records[key]["passes_ms"] = mlstm_passes_ms(torch, xs, chunk)
+    # the evidence for the state pass's walk: at B 1, H 4, S 1024 it runs
+    # 128 blocks (one per 128 x 128 tile of C, B*H = 4) that each walk the 4
+    # chunks in order; a chunk-parallel grid (one block per tile and chunk)
+    # would run 512 blocks of one chunk each, the grid B 4, H 4, S 256 gives,
+    # plus an in-order combine pass over the 4 chunks' float32 updates
+    xs = mlstm_case(torch, 4, 4, 256, 512, 1024, 256, False, "bfloat16", seed=12)[0]
+    records["mlstm"]["passes_ms"]["state_tc, 512 blocks of one chunk (B 4, H 4, S 256)"] = (
+        mlstm_passes_ms(torch, xs, 256)["state_tc"])
 
     # SSD at a zamba2-2.7b admission of 1024 tokens, empty state, x/B/C
     # views of one conv output as the block passes them; the work is counted
@@ -581,6 +651,14 @@ def check_kernels(torch) -> dict:
         if "ms_by_splits" in rec:
             print(f"{name} ms by cluster size (splits): " + ", ".join(
                 f"{s}: {ms:.4f}" for s, ms in rec["ms_by_splits"].items()))
+        if "host_us" in rec:
+            print(f"{name} host per call {rec['host_us']:.1f} us")
+        if "passes_ms" in rec:
+            print(f"{name} device ms per call by pass: " + ", ".join(
+                f"{p}: {ms:.4f}" for p, ms in rec["passes_ms"].items()))
+        if "previous" in rec:
+            prev = rec["previous"]
+            print(f"{name} previous route {prev['route']}: {prev['ms']:.4f} ms")
     return records
 
 
@@ -717,41 +795,67 @@ def check_model(torch, arch: str) -> None:
           f"model check {arch}: card and CPU logits differ by {max(errs)}")
 
 
-def check_xlstm(torch) -> None:
+def check_xlstm(torch, dtype: str = "float32") -> None:
     """Phase 4 for xlstm-1.3b: full width cut to one 7:1 group, prefill of
     2 x 300 tokens (the card's kernel runs chunks of 256 + 44, the CPU's
-    plain path two chunks of 150) and 4 decode steps.  The float32 card and
-    the float32 CPU are each held against a float64 run on the CPU, logits
-    and every state leaf."""
+    plain path two chunks of 150) and 4 decode steps.  The card and the CPU,
+    both in ``dtype``, are each held against a float64 run of the same
+    weights on the CPU.  float32: logits within XLSTM_LOGIT_ATOL and
+    XLSTM_VS_CPU x the CPU's distance, and every state leaf; bfloat16 (the
+    mLSTM kernel's tensor-core route): logits within XLSTM_VS_CPU x the bf16
+    CPU's distance, the state leaves' distances printed.  Both dtypes: the
+    first mLSTM layer's state after the prefill, card against the card's
+    own prefill with the plain mLSTM in place of the kernel (the layer's
+    inputs are then the same bits, so the kernel is held at MLSTM_TOL on
+    the model's activations, where deeper layers and the logits would carry
+    the model's own rounding noise: ~2 logits at 8 layers in bf16)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import mlstm
     from repro_torch.models.api import build_model, tree_map
+
+    def plain_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
+        h, st = mlstm.mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state, chunk=chunk)
+        return (h if out is None else out.copy_(h)), st
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     layers, B, T = XLSTM_CHECK
     cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=layers,
-                              param_dtype="float32", dtype="float32")
+                              param_dtype=dtype, dtype=dtype)
     cfg64 = dataclasses.replace(cfg, param_dtype="float64", dtype="float64")
     p_gpu = build_model(cfg, device=DEVICE).init(seed=0)
     p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
     sides = {"card": (build_model(cfg, device=DEVICE), p_gpu, DEVICE),
+             "card_plain": (build_model(cfg, device=DEVICE), p_gpu, DEVICE),
              "cpu": (build_model(cfg, device="cpu"), p_cpu, "cpu"),
              "cpu64": (build_model(cfg64, device="cpu"), tree_map(torch.Tensor.double, p_cpu),
                        "cpu")}
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
     steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))) for _ in range(4)]
-    logits, caches = {}, {}
+    logits, caches, first = {}, {}, {}
+    xl = cfg.xlstm
+    n_mlstm = layers // (xl.mlstm_per_group + xl.slstm_per_group) * xl.mlstm_per_group
+    kernel_heads = mlstm.mlstm_chunked_heads
     for name, (model, params, dev) in sides.items():
         before = mlstm.launches
-        lg, cache = model.prefill(params, {"tokens": tokens.to(dev)})
-        if name == "card":
-            xl = cfg.xlstm
-            n_mlstm = layers // (xl.mlstm_per_group + xl.slstm_per_group) * xl.mlstm_per_group
-            check(mlstm.launches - before == n_mlstm,
-                  f"xlstm prefill launched the mlstm kernel {mlstm.launches - before} times")
+        if name == "card_plain":
+            mlstm.mlstm_chunked_heads = plain_heads
+        try:
+            lg, cache = model.prefill(params, {"tokens": tokens.to(dev)})
+        finally:
+            mlstm.mlstm_chunked_heads = kernel_heads
+        if dev != "cpu":
+            want = n_mlstm if name == "card" else 0
+            check(mlstm.launches - before == want,
+                  f"xlstm {name} prefill launched the mlstm kernel {mlstm.launches - before} "
+                  f"times, not {want}")
+        # (C, n, m) of the first mLSTM layer, copied before decode updates it
+        first[name] = [leaf[0, 0].to("cpu", torch.float64, copy=True)
+                       for leaf in cache["mlstm"][:3]]
         logits[name] = [lg.cpu().double()]
+        if name == "card_plain":
+            continue
         for step in steps:
             lg, _ = model.decode_step(params, cache, {"tokens": step.to(dev), "pos": T})
             logits[name].append(lg.cpu().double())
@@ -764,16 +868,28 @@ def check_xlstm(torch) -> None:
     state = []
     tree_map(lambda a, b: state.append(within(torch, a, b, MLSTM_TOL["state"]["float32"])),
              caches["card"], caches["cpu64"])
-    print(f"model check xlstm-1.3b ({layers} layers, float32, prefill {B}x{T} + 4 decode "
+    f32 = dtype == "float32"
+    layer0 = [within(torch, a, b, MLSTM_TOL["state"][dtype])
+              for a, b in zip(first["card"], first["card_plain"])]
+    print(f"model check xlstm-1.3b ({layers} layers, {dtype}): first mLSTM layer's state "
+          f"after the prefill, kernel vs plain mLSTM on the card, max |diff| (C, n, m) "
+          f"{[f'{e:.3g}' for e, _ in layer0]}, within {MLSTM_TOL['state'][dtype]}: "
+          f"{all(ok for _, ok in layer0)}; prefill logits kernel vs plain mLSTM "
+          f"{errs('card', 'card_plain')[0]:.3g}")
+    print(f"model check xlstm-1.3b ({layers} layers, {dtype}, prefill {B}x{T} + 4 decode "
           f"steps), max |logits - float64 CPU| per call: card {[f'{e:.3g}' for e in e_card]}, "
-          f"float32 CPU {[f'{e:.3g}' for e in e_cpu]}; card vs float32 CPU "
-          f"{[f'{e:.3g}' for e in e_pair]}; tolerance {XLSTM_LOGIT_ATOL} and "
-          f"{XLSTM_VS_CPU}x the float32 CPU's; state leaves max |card - float64| "
-          f"{[f'{e:.3g}' for e, _ in state]}, within {MLSTM_TOL['state']['float32']}: "
-          f"{all(ok for _, ok in state)}")
-    check(max(e_card) <= XLSTM_LOGIT_ATOL and max(e_card) <= XLSTM_VS_CPU * max(e_cpu),
-          f"model check xlstm-1.3b: card logits {max(e_card)} from float64")
-    check(all(ok for _, ok in state), "model check xlstm-1.3b: states differ")
+          f"{dtype} CPU {[f'{e:.3g}' for e in e_cpu]}; card vs {dtype} CPU "
+          f"{[f'{e:.3g}' for e in e_pair]}; tolerance "
+          f"{str(XLSTM_LOGIT_ATOL) + ' and ' if f32 else ''}{XLSTM_VS_CPU}x the {dtype} CPU's; "
+          f"state leaves max |card - float64| {[f'{e:.3g}' for e, _ in state]}"
+          + (f", within {MLSTM_TOL['state']['float32']}: {all(ok for _, ok in state)}"
+             if f32 else ""))
+    check(max(e_card) <= XLSTM_VS_CPU * max(e_cpu) and (not f32 or max(e_card) <= XLSTM_LOGIT_ATOL),
+          f"model check xlstm-1.3b {dtype}: card logits {max(e_card)} from float64")
+    check(not f32 or all(ok for _, ok in state), "model check xlstm-1.3b: states differ")
+    check(all(ok for _, ok in layer0),
+          f"model check xlstm-1.3b {dtype}: the first mLSTM layer's state differs from the "
+          f"plain mLSTM's on the card: {[e for e, _ in layer0]}")
 
 
 def check_zamba2(torch) -> None:
@@ -1083,7 +1199,9 @@ def main() -> int:
         check_model(torch, arch)
         release(torch)
         print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
-    for arch, run in (("xlstm-1.3b", check_xlstm), ("zamba2-2.7b", check_zamba2)):
+    for arch, run in (("xlstm-1.3b", check_xlstm),
+                      ("xlstm-1.3b bfloat16", lambda t: check_xlstm(t, "bfloat16")),
+                      ("zamba2-2.7b", check_zamba2)):
         t0 = time.perf_counter()
         run(torch)
         release(torch)
@@ -1108,11 +1226,15 @@ def main() -> int:
         }
         if rec["library_ms"] is None:
             entry["library"] = rec["library"]
+        entry["shape"] = rec["shape"]
+        entry.update({k: rec[k] for k in ("ms_by_splits", "previous", "host_us", "passes_ms")
+                      if k in rec})
         for key, rec in records.items():   # the same kernel at other timed shapes
             if key.startswith(f"{name}_"):
                 entry[key[len(name) + 1:]] = {k: rec[k] for k in (
                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}
+                    "library_ms", "ms_by_splits", "previous", "host_us", "passes_ms")
+                    if k in rec}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     for stats in served.values():

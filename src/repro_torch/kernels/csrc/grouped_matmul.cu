@@ -7,34 +7,46 @@
 //
 // Bound on an H100: bytes at decode (C <= 8: every call streams all E expert
 // matrices, 268 MB for olmoe's gate at 2 flops per weight element per token),
-// and on paper still bytes at a 1024-token prefill (C = 160).  Three kernels:
-//  * skinny (C <= 8, decode): one block per (expert, 32 * VN columns of f);
-//    lane l of every warp owns one 16-byte vector of w columns, so a warp
-//    reads 512 contiguous bytes of one w row; the 8 warps split d, each
-//    streaming its rows with 8 loads in flight per thread, while the 8 rows
-//    of x sit in shared memory as float32 (512 d positions per stage); the
-//    warps' partial sums meet in shared memory at the end.  w is read from
-//    device memory exactly once per call;
-//  * mma (bf16, C > 8, prefill): 64 x 128 output tiles on the tensor cores
-//    (mma.sync m16n8k16, float32 accumulators, 8 warps of 32 x 32); 32-deep
-//    bf16 x and w tiles go to shared memory with cp.async in a 3-stage ring
-//    (zero-filled past a ragged edge) and into registers with ldmatrix (.trans
-//    for w, whose rows run along f); the row padding keeps ldmatrix free of
-//    bank conflicts;
-//  * tiled (float32, C > 8): the same tiling on the CUDA cores, 64 x 64
-//    tiles staged as float32, 4 x 4 outputs per thread, each 32-deep partial
-//    sum added to the accumulator, which keeps the rounding error of a
-//    d = 2048 sum near that of a blocked sum.  (The tensor cores take float32
-//    only as TF32, which would miss the float32 tolerance.)
-// The prefill kernels run the blocks that share a w tile (all C tiles of one
-// expert and f tile) next to each other, so w is read from device memory
-// about once and from L2 for the other C tiles.  All three read x and w
-// through strides with a unit last dim, in 16-byte vectors where a vector
-// lies inside the matrix and element by element at a ragged edge, and write
-// the output element by element.  wgmma, TMA and skipping experts that
-// received no token are later work.
-#include <type_traits>
-
+// and on paper still bytes at a 1024-token prefill (C = 160).  Four kernels,
+// the route chosen by the Python wrapper (grouped_matmul.py `route`):
+//  * wgmma (bf16, C > 8): a persistent grid, one block per SM, walks the
+//    tiles (256-row chunk of C, expert, 128 columns of f), full chunks
+//    first, so one tile covers the whole capacity of a prefill and each w
+//    tile leaves device memory once.  One producer warpgroup starts TMA
+//    loads (64 x 64 boxes, 128-byte swizzle, zero past every edge) into a
+//    4-stage ring guarded by mbarriers; two consumer warpgroups, one per
+//    64-column half of the tile, multiply every 64-row slab of x with wgmma
+//    m64n64k16 (x K-major, w N-major, float32 accumulators), keeping one
+//    stage of products in flight before handing a stage back, and store
+//    bf16 pairs from the fragments (single elements at an odd f) while the
+//    producer already loads the next tile;
+//  * stream (bf16, C <= 8): one block per (256-column slab of f, expert),
+//    two to an SM; a producer warp streams 16-row TMA boxes of w (128-byte
+//    swizzle) through an 8-stage ring, and four consumer warps take the
+//    stages in turn and form out^T = w^T x^T on the tensor cores (mma.sync
+//    m16n8k16: w^T by ldmatrix.trans as the A operand, the 8 rows of x as
+//    the 8 columns of B); the warps' sums meet in shared memory in warp
+//    order (no atomics), so the sum's order is fixed;
+//  * skinny (float32, C <= 8): one block per (expert, 32 * VN columns of
+//    f); lane l of every warp owns one 16-byte vector of w columns, so a
+//    warp reads 512 contiguous bytes of one w row; the 8 warps split d,
+//    each streaming its rows with 8 loads in flight per thread, while the 8
+//    rows of x sit in shared memory as float32 (512 d positions per stage);
+//    the warps' partial sums meet in shared memory;
+//  * tiled (float32, C > 8): 64 x 64 tiles on the CUDA cores, staged as
+//    float32, 4 x 4 outputs per thread, each 32-deep partial sum added to
+//    the accumulator, which keeps the rounding error of a d = 2048 sum near
+//    that of a blocked sum; the blocks that share a w tile run next to each
+//    other, so w is read from device memory about once and from L2 for the
+//    other C tiles.  (The tensor cores take float32 only as TF32, which
+//    would miss the float32 tolerance.)
+// Every kernel reads x and w through strides with a unit last dim.  The TMA
+// routes take every view the wrapper accepts: it demands 16-byte aligned
+// bases and outer strides (_build.check_inputs), which is what a tensor map
+// needs, and a ragged d or f (a row that ends inside a 16-byte vector) is
+// read as zeros past the edge by TMA.  The float32 kernels load 16-byte
+// vectors where a vector lies inside the matrix and element by element at a
+// ragged edge.  Skipping experts that received no token is later work.
 #include "common.cuh"
 
 namespace ham {
@@ -52,12 +64,6 @@ constexpr int kInFlight = 2;   // groups loaded before the first is used
 // tiled kernel (float32)
 constexpr int kBC = 64, kBF = 64, kBD = 32;
 constexpr int kPadX = 4;       // x-tile row padding (floats), keeps float4 rows aligned
-
-// mma kernel (bf16)
-constexpr int kMC = 64, kMF = 128, kMK = 32;  // block tile: C x f, d per stage
-constexpr int kStages = 3;                    // cp.async ring depth
-constexpr int kAS = kMK + 8;                  // x-tile row, bf16 (80 B: conflict-free ldmatrix)
-constexpr int kBS = kMF + 8;                  // w-tile row, bf16 (272 B: conflict-free ldmatrix)
 
 // The first n elements of a 16-byte vector at p (all of them when n >= N,
 // none when n <= 0), the rest zero.  A partial vector is read element by
@@ -269,126 +275,331 @@ gmm_tiled(const float* __restrict__ x, const float* __restrict__ w, float* __res
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gmm_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-        __nv_bfloat16* __restrict__ out, int C, int D, int F, int64_t x_se, int64_t x_sc,
-        int64_t w_se, int64_t w_sd, int64_t o_se, int64_t o_sc) {
-  using T = __nv_bfloat16;
-  constexpr int VN = Vec<T>::N;
-  static_assert(kMC * kMK / VN == kThreads && kMK * kMF / VN == 2 * kThreads, "tile shape");
-  __shared__ __align__(16) T as[kStages][kMC][kAS];  // x tiles: as[s][c][k]
-  __shared__ __align__(16) T bs[kStages][kMK][kBS];  // w tiles: bs[s][k][f]
+// ---- TMA routes (bf16) ------------------------------------------------------
 
-  const int c0 = blockIdx.x * kMC, f0 = blockIdx.y * kMF, e = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp % 2) * 32, wn = (warp / 2) * 32;  // this warp's 32 x 32 of the tile
-  const T* xe = x + e * x_se;
-  const T* we = w + e * w_se;
-
-  auto load_stage = [&](int s, int k0) {
-    {  // x: 64 rows x 4 vectors, one per thread
-      const int row = threadIdx.x / (kMK / VN), k = (threadIdx.x % (kMK / VN)) * VN;
-      const int c = c0 + row;
-      const int n = c < C ? min(VN, max(0, D - k0 - k)) : 0;
-      cp_async16(&as[s][row][k], n > 0 ? xe + c * x_sc + k0 + k : xe, 2 * n);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // w: 32 rows x 16 vectors, two per thread
-      const int idx = threadIdx.x + i * kThreads;
-      const int row = idx / (kMF / VN), j = (idx % (kMF / VN)) * VN;
-      const int k = k0 + row;
-      const int n = k < D ? min(VN, max(0, F - f0 - j)) : 0;
-      cp_async16(&bs[s][row][j], n > 0 ? we + k * w_sd + f0 + j : we, 2 * n);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
-
-  const int nk = (D + kMK - 1) / kMK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s * kMK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has landed
-    __syncthreads();               // ... for every thread, and stage kt - 1 is consumed
-    const int pf = kt + kStages - 1;
-    if (pf < nk) load_stage(pf % kStages, pf * kMK);
-    cp_async_commit();
-    const int s = kt % kStages;
-#pragma unroll
-    for (int kk = 0; kk < kMK; kk += 16) {
-      unsigned a[2][4], b[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], &as[s][wm + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
-      // b[jj] = {b0, b1} of n-tile 2 jj, then {b0, b1} of n-tile 2 jj + 1
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        ldmatrix_x4_trans(b[jj], &bs[s][kk + (lane & 15)][wn + jj * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j % 2)], b[j / 2][2 * (j % 2) + 1]);
-    }
-  }
-
-  // accumulator (i, j): rows wm + 16 i + lane / 4 (+ 8), columns wn + 8 j + 2 (lane % 4) (+ 1)
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + wm + i * 16 + lane / 4 + 8 * h;
-      if (c >= C) continue;
-      T* orow = out + e * o_se + c * o_sc;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int fc = f0 + wn + j * 8 + 2 * (lane % 4);
-        if (fc < F) store(orow + fc, acc[i][j][2 * h]);
-        if (fc + 1 < F) store(orow + fc + 1, acc[i][j][2 * h + 1]);
-      }
-    }
+// named barrier among the `n` threads of the consumer warps (id 0 is
+// __syncthreads')
+__device__ __forceinline__ void consumers_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(n) : "memory");
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
-           const long long* st, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  if (C <= kRows) {
-    constexpr int cols = 32 * Vec<T>::N;
-    const dim3 grid((F + cols - 1) / cols, E);
-    gmm_skinny<T><<<grid, kThreads, 0, stream>>>(xp, wp, op, C, D, F, st[0], st[1], st[2],
-                                                 st[3], st[4], st[5]);
-  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const dim3 grid((C + kMC - 1) / kMC, (F + kMF - 1) / kMF, E);  // C tiles of one w tile adjacent
-    gmm_mma<<<grid, kThreads, 0, stream>>>(xp, wp, op, C, D, F, st[0], st[1], st[2], st[3],
-                                           st[4], st[5]);
+// stream kernel (bf16, C <= 8, decode)
+constexpr int kSWarps = 4;                      // consumer warps
+constexpr int kSThreads = 32 * (kSWarps + 1);   // + one producer warp
+constexpr int kSRows = 16;                      // w rows per ring stage: one k16 step
+constexpr int kSStages = 8;                     // ring depth: 128 KB in flight per SM
+constexpr int kSCols = 256;                     // slab width: 16 m16 tiles of f
+constexpr int kSBox = 64;                       // f columns of a TMA box (128 bytes, swizzled)
+constexpr int kSStageBytes = kSRows * kSCols * 2;
+constexpr int kSXD = 512;                       // d positions of x staged at a time
+constexpr int kSXS = kSXD + 8;                  // bf16 row stride of the staged x
+constexpr size_t kSSmem = 1024 + kSStages * kSStageBytes + kRows * kSXS * 2;
+static_assert(kSWarps * kRows * kSCols * 4 <= kSStages * kSStageBytes, "reduction fits the ring");
+
+__global__ void __launch_bounds__(kSThreads)
+gmm_stream(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
+           __nv_bfloat16* __restrict__ out, int C, int D, int F, int64_t x_se, int64_t x_sc,
+           int64_t o_se, int64_t o_sc) {
+  using T = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kSStages], empty[kSStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = smem;                                            // [stage][box][row][64]
+  T* xs = reinterpret_cast<T*>(smem + kSStages * kSStageBytes);          // [c][kSXS]
+
+  const int slab = blockIdx.x, e = blockIdx.y;
+  const int nst = (D + kSRows - 1) / kSRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 0) {  // producer: one lane keeps the ring full with TMA boxes of w
+    if (lane == 0)
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % kSStages;
+        mbar_wait(&empty[s], ((i / kSStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kSStageBytes);
+        for (int bx = 0; bx < kSCols / kSBox; ++bx)
+          tma_load_3d(ring + s * kSStageBytes + bx * kSRows * 128, &wmap, &full[s],
+                      slab * kSCols + bx * kSBox, i * kSRows, e);
+      }
   } else {
+    // consumer warp cw takes stages cw, cw + kSWarps, ...: out^T = w^T x^T on
+    // the tensor cores, w^T the A operand (16 f x 16 d, ldmatrix.trans from
+    // the swizzled box), x^T the B operand (16 d x 8 rows of C)
+    const int cw = warp - 1, ct = threadIdx.x - 32;
+    const T* xe = x + e * x_se;
+    float acc[kSCols / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < kSCols / 16; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
+    for (int i = 0; i < nst; ++i) {
+      const int r0 = i * kSRows;
+      if (r0 % kSXD == 0) {  // the next kSXD positions of x, bf16, zero past C and past d
+        consumers_sync(32 * kSWarps);
+        for (int idx = ct; idx < kRows * (kSXD / 8); idx += 32 * kSWarps) {
+          const int c = idx / (kSXD / 8), j = (idx % (kSXD / 8)) * 8;
+          const int p = r0 + j;
+          *reinterpret_cast<uint4*>(xs + c * kSXS + j) =
+              load_vec(xe + c * x_sc + p, c < C ? D - p : 0);
+        }
+        consumers_sync(32 * kSWarps);
+      }
+      if (i % kSWarps != cw) continue;
+      const int s = i % kSStages;
+      mbar_wait(&full[s], (i / kSStages) & 1);
+      const unsigned char* st = ring + s * kSStageBytes;
+      const T* xr = xs + (lane / 4) * kSXS + r0 % kSXD + 2 * (lane % 4);
+      const unsigned b0 = *reinterpret_cast<const unsigned*>(xr);
+      const unsigned b1 = *reinterpret_cast<const unsigned*>(xr + 8);
+      const int dr = (lane & 7) + ((lane >> 4) << 3);  // the stage row this lane addresses
+#pragma unroll
+      for (int mt = 0; mt < kSCols / 16; ++mt) {
+        const int col = mt * 16 + ((lane >> 3) & 1) * 8;
+        const int chunk = (col % kSBox) / 8;           // 16-byte chunk, 128-byte swizzle
+        unsigned a[4];
+        ldmatrix_x4_trans(a, st + (col / kSBox) * kSRows * 128 + dr * 128 +
+                                 ((chunk ^ (dr & 7)) * 16));
+        mma_bf16(acc[mt], a, b0, b1);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the consumer warps' sums meet in the ring (every stage has landed and
+    // been read), then add in warp order (deterministic); fragment (mt, i):
+    // f column 16 mt + lane / 4 + 8 (i / 2), row of C 2 (lane % 4) + i % 2
+    consumers_sync(32 * kSWarps);
+    float* red = reinterpret_cast<float*>(smem);  // [warp][c][col]
+#pragma unroll
+    for (int mt = 0; mt < kSCols / 16; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[(cw * kRows + 2 * (lane % 4) + i % 2) * kSCols + mt * 16 + lane / 4 + 8 * (i / 2)] =
+            acc[mt][i];
+    consumers_sync(32 * kSWarps);
+    for (int idx = ct; idx < kRows * kSCols; idx += 32 * kSWarps) {
+      const int c = idx / kSCols, col = slab * kSCols + idx % kSCols;
+      if (c >= C || col >= F) continue;
+      float sum = 0.f;
+      for (int w = 0; w < kSWarps; ++w) sum += red[w * kRows * kSCols + idx];
+      store(out + e * o_se + c * o_sc + col, sum);
+    }
+  }
+}
+
+// wgmma kernel (bf16, C > 8, prefill)
+constexpr int kWN = 128;                       // f columns of a tile (two 64-wide TMA boxes)
+constexpr int kWK = 64;                        // d per stage: one 128-byte swizzled row
+constexpr int kWSlabs = 4;                     // 64-row slabs of C a tile covers (256 rows)
+constexpr int kWStages = 4;
+constexpr int kWThreads = 384;                 // producer warpgroup + 2 consumer warpgroups
+constexpr int kWSlabBytes = 64 * kWK * 2;      // 8 KB of x
+constexpr int kWBoxBytes = kWK * 64 * 2;       // 8 KB: one 64-column box of w
+constexpr int kWStageBytes = kWSlabs * kWSlabBytes + 2 * kWBoxBytes;
+constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes;
+
+__global__ void __launch_bounds__(kWThreads, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+          __nv_bfloat16* __restrict__ out, int E, int C, int F, int nk, int ntiles,
+          int64_t o_se, int64_t o_sc) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWStages], empty[kWStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nf = (F + kWN - 1) / kWN;
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile t: (256-row chunk of C, expert, f tile), full chunks first; block b
+  // takes tiles b, b + gridDim.x, ...
+  if (wg == 0) {  // producer warpgroup: one thread starts the TMA loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tw == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int mi = t / (E * nf), e = (t / nf) % E, fi = t % nf;
+        const int row0 = mi * kWSlabs * 64;
+        const int nslab = min(kWSlabs, (C - row0 + 63) / 64);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kWStages;
+          mbar_wait(&empty[s], ((it / kWStages) & 1) ^ 1);
+          unsigned char* st = smem + s * kWStageBytes;
+          mbar_expect_tx(&full[s], nslab * kWSlabBytes + 2 * kWBoxBytes);
+          for (int sl = 0; sl < nslab; ++sl)
+            tma_load_3d(st + sl * kWSlabBytes, &xmap, &full[s], kt * kWK, row0 + sl * 64, e);
+          unsigned char* bs = st + kWSlabs * kWSlabBytes;
+          tma_load_3d(bs, &wmap, &full[s], fi * kWN, kt * kWK, e);
+          tma_load_3d(bs + kWBoxBytes, &wmap, &full[s], fi * kWN + 64, kt * kWK, e);
+        }
+      }
+    }
+  } else {        // consumer warpgroup c: columns 64 c .. 64 c + 63 of every slab of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1, warp = tw / 32, lane = tw % 32;
+    float acc[kWSlabs][32];
+    int it = 0, held = -1;  // held: the stage whose products may still be in flight
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int mi = t / (E * nf), e = (t / nf) % E, fi = t % nf;
+      const int row0 = mi * kWSlabs * 64;
+      const int nslab = min(kWSlabs, (C - row0 + 63) / 64);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kWStages;
+        mbar_wait(&full[s], (it / kWStages) & 1);
+        const unsigned char* st = smem + s * kWStageBytes;
+        const unsigned char* bs = st + kWSlabs * kWSlabBytes + c * kWBoxBytes;
+#pragma unroll
+        for (int sl = 0; sl < kWSlabs; ++sl) wgmma_fence_operands(acc[sl]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk) {
+          // w (N-major): this warpgroup's 64-column box, 16 rows of 128 bytes
+          // per k step, 8-row groups 1024 bytes apart (SBO)
+          const uint64_t db = wgmma_desc(bs + kk * 16 * 128, kWBoxBytes, 1024);
+          const int scale = kt > 0 || kk > 0;
+          // x (K-major): a k step is 32 bytes along the swizzled row
+#pragma unroll
+          for (int sl = 0; sl < kWSlabs; ++sl)
+            if (sl < nslab)
+              wgmma_m64n64k16_kn(acc[sl], wgmma_desc(st + sl * kWSlabBytes + kk * 32, 16, 1024),
+                                 db, scale);
+        }
+        wgmma_commit();
+        // one stage of products stays in flight: once the previous stage's
+        // are done, its buffers go back to the producer
+        wgmma_wait<1>();
+        if (held >= 0 && tw == 0) mbar_arrive(&empty[held]);
+        held = s;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int sl = 0; sl < kWSlabs; ++sl) wgmma_fence_operands(acc[sl]);
+      if (tw == 0) mbar_arrive(&empty[held]);
+      held = -1;
+      // epilogue, while the producer loads the next tile: bf16 pairs from
+      // the fragments (single elements where a pair is not 4-byte aligned
+      // or reaches past f); d[4 j + i] of slab sl is row 64 sl + 16 warp +
+      // lane / 4 + 8 (i / 2), column 64 c + 8 j + 2 (lane % 4) + i % 2
+      __nv_bfloat16* oe = out + e * o_se;
+      const bool pairs = o_se % 2 == 0 && o_sc % 2 == 0;
+#pragma unroll
+      for (int sl = 0; sl < kWSlabs; ++sl) {
+        if (sl >= nslab) break;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = fi * kWN + c * 64 + j * 8 + 2 * (lane % 4);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = row0 + sl * 64 + warp * 16 + lane / 4 + 8 * hr;
+            const float v0 = acc[sl][4 * j + 2 * hr], v1 = acc[sl][4 * j + 2 * hr + 1];
+            if (row >= C || col >= F) continue;
+            if (pairs && col + 1 < F) {
+              *reinterpret_cast<unsigned*>(oe + row * o_sc + col) = pack_bf16(v0, v1);
+            } else {
+              store(oe + row * o_sc + col, v0);
+              if (col + 1 < F) store(oe + row * o_sc + col + 1, v1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Routes, chosen by the Python wrapper (kernels/grouped_matmul.py `route`).
+enum Route : int { kSkinny = 0, kTiled = 1, kStream = 2, kWgmma = 3 };
+
+// A byte stride usable in a tensor map: a size-1 dim's stride is never
+// used to address, so any multiple of 16 stands in for it.
+inline uint64_t map_stride(long long elems, int size) {
+  return size > 1 ? static_cast<uint64_t>(elems) * 2 : 16;
+}
+
+int launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* out, int E,
+                  int C, int D, int F, const long long* st, cudaStream_t stream) {
+  // w as (f, d, E), boxes of 16 rows x 64 columns, 128-byte swizzle; the
+  // weights' maps come from the table after a layer's first call
+  const CUtensorMap* wmap = cached_tensor_map(w, F, D, E, map_stride(st[3], D),
+                                              map_stride(st[2], E), kSBox, kSRows,
+                                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!wmap) return kTensorMap;
+  cudaError_t err = allow_smem_once<gmm_stream>(kSSmem);
+  if (err != cudaSuccess) return err;
+  gmm_stream<<<dim3((F + kSCols - 1) / kSCols, E), kSThreads, kSSmem, stream>>>(
+      *wmap, x, out, C, D, F, st[0], st[1], st[4], st[5]);
+  return cudaGetLastError();
+}
+
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* out, int E,
+                 int C, int D, int F, int grid, const long long* st, cudaStream_t stream) {
+  // x as (d, C, E), w as (f, d, E): 64 x 64 boxes, 128-byte swizzle; x is
+  // a new activation every call, w's map comes from the table
+  CUtensorMap xmap;
+  const CUtensorMap* wmap = cached_tensor_map(w, F, D, E, map_stride(st[3], D),
+                                              map_stride(st[2], E), 64, kWK,
+                                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!wmap || !encode_tensor_map(&xmap, x, D, C, E, map_stride(st[1], C),
+                                  map_stride(st[0], E), kWK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return kTensorMap;
+  cudaError_t err = allow_smem_once<gmm_wgmma>(kWSmem);
+  if (err != cudaSuccess) return err;
+  const int nf = (F + kWN - 1) / kWN, nm = (C + kWSlabs * 64 - 1) / (kWSlabs * 64);
+  const int ntiles = nm * E * nf;
+  if (grid < 1) return kUnsupported;
+  gmm_wgmma<<<min(grid, ntiles), kWThreads, kWSmem, stream>>>(
+      xmap, *wmap, out, E, C, F, (D + kWK - 1) / kWK, ntiles, st[4], st[5]);
+  return cudaGetLastError();
+}
+
+int launch_f32(int route, const float* x, const float* w, float* out, int E, int C, int D, int F,
+               const long long* st, cudaStream_t stream) {
+  if (route == kSkinny && C <= kRows) {
+    constexpr int cols = 32 * Vec<float>::N;
+    gmm_skinny<float><<<dim3((F + cols - 1) / cols, E), kThreads, 0, stream>>>(
+        x, w, out, C, D, F, st[0], st[1], st[2], st[3], st[4], st[5]);
+  } else if (route == kTiled) {
     const dim3 grid((C + kBC - 1) / kBC, (F + kBF - 1) / kBF, E);  // C tiles of one w tile adjacent
-    gmm_tiled<<<grid, kThreads, 0, stream>>>(xp, wp, op, C, D, F, st[0], st[1], st[2], st[3],
+    gmm_tiled<<<grid, kThreads, 0, stream>>>(x, w, out, C, D, F, st[0], st[1], st[2], st[3],
                                              st[4], st[5]);
+  } else {
+    return kUnsupported;
   }
   return cudaGetLastError();
+}
+
+int launch_bf16(int route, int grid, const __nv_bfloat16* x, const __nv_bfloat16* w,
+                __nv_bfloat16* out, int E, int C, int D, int F, const long long* st,
+                cudaStream_t stream) {
+  if (route == kStream && C <= kRows) return launch_stream(x, w, out, E, C, D, F, st, stream);
+  if (route == kWgmma) return launch_wgmma(x, w, out, E, C, D, F, grid, st, stream);
+  return kUnsupported;
 }
 
 }  // namespace
 }  // namespace ham
 
 // x (E, C, d), w (E, d, f), out (E, C, f): element strides of the two outer
-// dims (the last dim is contiguous).  Returns 0 or the launch error.
+// dims (the last dim is contiguous; bases and outer strides 16-byte
+// aligned).  route: 0 skinny (float32, C <= 8), 1 tiled (float32), 2 stream
+// (bf16, C <= 8), 3 wgmma (bf16); grid: the wgmma route's persistent
+// blocks.  Returns 0 or the launch error.
 extern "C" int ham_grouped_matmul(
-    const void* x, const void* w, void* out, int E, int C, int D, int F, int dtype,
-    long long x_se, long long x_sc, long long w_se, long long w_sd,
+    const void* x, const void* w, void* out, int E, int C, int D, int F, int dtype, int route,
+    int grid, long long x_se, long long x_sc, long long w_se, long long w_sd,
     long long o_se, long long o_sc, int device, void* stream) {
   if (E == 0 || C == 0 || F == 0) return 0;
   if (E > 65535) return ham::kUnsupported;  // the experts index a grid dim
@@ -397,8 +608,13 @@ extern "C" int ham_grouped_matmul(
   const long long st[6] = {x_se, x_sc, w_se, w_sd, o_se, o_sc};
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case ham::kF32: return ham::launch<float>(x, w, out, E, C, D, F, st, s);
-    case ham::kBF16: return ham::launch<__nv_bfloat16>(x, w, out, E, C, D, F, st, s);
+    case ham::kF32:
+      return ham::launch_f32(route, static_cast<const float*>(x), static_cast<const float*>(w),
+                             static_cast<float*>(out), E, C, D, F, st, s);
+    case ham::kBF16:
+      return ham::launch_bf16(route, grid, static_cast<const __nv_bfloat16*>(x),
+                              static_cast<const __nv_bfloat16*>(w),
+                              static_cast<__nv_bfloat16*>(out), E, C, D, F, st, s);
     default: return ham::kUnsupported;
   }
 }

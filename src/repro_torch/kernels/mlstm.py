@@ -12,24 +12,31 @@ tokens (4 heads, dk 512, dv 1024, L 256) does 11.8 GFLOP, counted as the
 TPU kernel's work, on ~34 MB.  The TPU kernel keeps C, 2 MB at these widths,
 in VMEM across the whole chunk loop, one grid row per (sequence, head); a
 block here has 227 KB of shared memory, and B*H = 4 rows would fill 4 of
-132 SMs.  What the design does about it, in this first, simple version:
+132 SMs.  What the design does about it:
 
 * a scalar prologue per (sequence, head) computes every gate quantity (the
   log-forget cumsum, the running max, the m chain across chunks) once;
-* the state pass gives each (dk tile, dv tile) of C its own block, walking
-  the chunks in order with the tile in registers and storing the state at
-  the start of every chunk to float32 scratch;
-* the score and output passes then run every (chunk, position tile, dv
-  tile) in parallel, like flash attention with the decay weight in place
-  of the softmax plus one q.C_prev term;
+* bf16 inputs at xLSTM widths (:func:`route`) take the tensor cores: a
+  state pass gives each 128 x 128 tile of C a block that forms every
+  chunk's update k^T (e^{a-g_L} v) with ``mma.sync`` and combines the
+  chunks in order in float32, storing the state at each chunk start as the
+  bf16 operand of the next pass; a fused pass then forms, per (chunk, 64
+  positions, 256 dv columns), q C_prev, the decay-weighted causal scores and
+  P V flash-style, with no score tile in device memory.  The decay-weighted
+  v enters its product as a bf16 hi + lo pair: one rounding of it misses the
+  state tolerance at dk 512;
+* float32 inputs keep the CUDA-core passes of the first port (a state pass
+  per 64 x 64 tile of C, a score pass and an output pass), exact to the
+  float32 tolerance;
 * any S is taken: the positions past S in the last chunk are masked, so
   the model calls it with ``chunk = min(chunk_size, S)`` and a prime prompt
   length never degenerates to chunk 1.
 
 Numerics: q is divided by sqrt(dk) and rounded to its dtype before the
-float32 products, as the model's chunked form (the plain version) does;
-the TPU kernel scales after the upcast.  The products run on the CUDA cores
-in float32; tensor-core tiles, TMA and fusing the passes are later work.
+products, as the model's chunked form (the plain version) does (the
+tensor-core route multiplies by the reciprocal, which can differ from the
+division by one float ulp before the rounding); the TPU kernel scales after
+the upcast.  The carried state and every accumulator are float32.
 
 The plain version keeps the reference's chunk rule: the chunk shrinks
 until it divides S.
@@ -46,9 +53,11 @@ from repro_torch.kernels.ref import divisor_chunk, mlstm_chunk_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ham_mlstm_chunked": [_P] * 17 + [_I] * 8 + [_L] * 18 + [_I, _P],
+    "ham_mlstm_chunked": [_P] * 17 + [_I] * 9 + [_L] * 18 + [_I, _P],
 }
 _TILE = 64  # csrc/mlstm.cu kT: the chunk is padded to a multiple of it
+_TC_DK, _TC_DV = 256, 256  # csrc/mlstm.cu kScoreK, kDvT: the tensor-core route's tiles
+_TC_MAX_DK = 512            # csrc/mlstm.cu kTcMaxDk: a block's q rows sit in shared memory
 
 #: kernel launches made by :func:`mlstm_chunked_heads` (plain calls not counted)
 launches = 0
@@ -97,7 +106,19 @@ def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
     return _launch(q, k, v, i_pre, f_pre, state, chunk, out)
 
 
-def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
+def route(q, v) -> str:
+    """``tensor_cores`` for bf16 inputs whose widths fill the tensor-core
+    tiles (dk 256 or 512, dv a multiple of 256: xlstm-1.3b's 512 and 1024);
+    ``cuda_cores`` otherwise (float32 keeps its exact products)."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    if (q.dtype == torch.bfloat16 and dk % _TC_DK == 0 and dk <= _TC_MAX_DK
+            and dv % _TC_DV == 0):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
+    """Launch the kernel; ``kernel`` overrides the route (for timing each)."""
     global launches
     B, H, S, dk = q.shape
     dv = v.shape[-1]
@@ -124,14 +145,21 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out):
             raise ValueError("mlstm state must be contiguous (C (B,H,dk,dv), n (B,H,dk), m (B,H))")
     st0 = state if state is not None else (C, n, m)   # not read without a state
     BH = B * H
-    ws = [torch.empty(size, **f32) for size in (
-        4 * BH * nc * Lp, BH * (2 * nc + 1), BH * nc * Lp * Lp, BH * nc * dk * dv, BH * nc * dk)]
+    tc = (kernel or route(q, v)) == "tensor_cores"
+    # gates, per-chunk scalars, P^T tiles (CUDA-core route only), the state
+    # at every chunk start (bf16 on the tensor-core route: the operand the
+    # fused pass multiplies q by), n at every chunk start
+    ws = [torch.empty(4 * BH * nc * Lp, **f32), torch.empty(BH * (2 * nc + 1), **f32),
+          torch.empty(0 if tc else BH * nc * Lp * Lp, **f32),
+          torch.empty(BH * nc * dk * dv, dtype=torch.bfloat16 if tc else torch.float32,
+                      device=q.device),
+          torch.empty(BH * nc * dk, **f32)]
     lib = _build.library("mlstm", _SIGNATURES)
     err = lib.ham_mlstm_chunked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(), f_pre.data_ptr(),
         *(s.data_ptr() for s in st0), out.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
         *(w.data_ptr() for w in ws),
-        B, H, S, dk, dv, L, int(state is not None), dtype,
+        B, H, S, dk, dv, L, int(state is not None), dtype, int(tc),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *i_pre.stride(), *f_pre.stride(),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
