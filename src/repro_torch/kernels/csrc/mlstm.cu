@@ -12,8 +12,8 @@
 //   m_next = F_L + g_L.
 //
 // Bound on an H100: operations (xlstm-1.3b's prefill of 1024 tokens over 4
-// heads of dk 512, dv 1024 does 11.8 GFLOP, counted as the TPU kernel's
-// work, on ~34 MB).  The TPU kernel keeps C (2 MB at these widths) in VMEM
+// heads of dk 512, dv 1024 needs 10.2 GFLOP, the score products on and
+// below the diagonal only, on ~34 MB).  The TPU kernel keeps C (2 MB at these widths) in VMEM
 // for the whole chunk loop, one grid row per (sequence, head): on this card
 // C does not fit in a block's 227 KB, and B*H = 4 blocks would leave 128 of
 // 132 SMs idle.  Two routes share the gate prologue:

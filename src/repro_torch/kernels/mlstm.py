@@ -8,8 +8,8 @@ m; inside a chunk the output is two products (decay-weighted q.k scores
 times v, and q times the carried C) over a max-stabilised denominator.
 
 What bounds it on an H100: operations.  An xlstm-1.3b admission of 1024
-tokens (4 heads, dk 512, dv 1024, L 256) does 11.8 GFLOP, counted as the
-TPU kernel's work, on ~34 MB.  The TPU kernel keeps C, 2 MB at these widths,
+tokens (4 heads, dk 512, dv 1024, L 256) needs 10.2 GFLOP (the score
+products on and below the diagonal) on ~34 MB.  The TPU kernel keeps C, 2 MB at these widths,
 in VMEM across the whole chunk loop, one grid row per (sequence, head); a
 block here has 227 KB of shared memory, and B*H = 4 rows would fill 4 of
 132 SMs.  What the design does about it:
