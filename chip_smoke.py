@@ -36,8 +36,16 @@ Phases, in order; any failure raises and exits non-zero:
    of 1024-token admissions (one for xlstm-1.3b, whose sLSTM prefill is a
    host loop of ~150 k small launches), and one sampled request, with the
    kernels' launch counters zeroed before and checked after each model;
-6. print the kernel line and one serving line per model (JSON);
-7. last line: ``{"ok": true, "device": {...}}``.
+6. cluster serving through the port's HAM runtime: internlm2-20b at full
+   config in bfloat16 through ``ClusterServingEngine`` (2 thread workers x 4
+   slots, ``max_len`` 2048), worker-driven (decode blocks of 16), lockstep
+   and worker-driven on one 4-slot worker, on 16 requests of 64 new
+   tokens, each token-identical to one 4-slot ``ServingEngine`` on the same
+   requests; exact decode and flash launch counts, tokens/s, TTFT and host
+   RPCs per emitted token (below 0.1 worker-driven);
+7. print the kernel line, one serving line per model and the cluster
+   serving line (JSON);
+8. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 """
@@ -110,6 +118,9 @@ MODEL_CHECKS = {
     "qwen2-moe-a2.7b": (2, 128, [128, 100]),
 }
 SERVED = ("internlm2-20b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b")
+# phase 6: internlm2-20b through the port's ClusterServingEngine (thread
+# workers x slots each, against one engine of as many slots)
+CLUSTER = {"workers": 2, "slots": 4, "requests": 16, "new_tokens": 64}
 
 # mLSTM: |kernel - plain| <= atol + rtol |plain| for h and for the final
 # state.  float32 takes tests/test_kernels.py's tolerances for a kernel held
@@ -458,6 +469,10 @@ def check_kernels(torch) -> dict:
         check(dec.num_splits(4 * Hkv) == splits, f"no B * Hkv gives {splits} splits")
         decode_cases += [(4, Hkv, 4, 1024, 128, dt, [1, 37, 1024 // splits - 1, 5000])
                          for dt in ("bfloat16", "float32")]
+    # phase 6's replica shape (internlm2-20b, 4 slots): 4 splits at qpk 6,
+    # lengths over its range (prompt 64..448 + 64 new tokens) and beyond
+    decode_cases += [(4, 8, 6, 2048, 128, dt, lens) for dt in ("bfloat16", "float32")
+                     for lens in ([1, 64, 449, 512], [513, 2047, 2048, 5000])]
     for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(decode_cases):
         _, got, want = decode_case(torch, B, Hkv, qpk, S, d, dt, lens, seed=i)
         err = max_err(torch, got, want)
@@ -1286,6 +1301,185 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 6: cluster serving through the HAM runtime ------------------------
+
+
+def cluster_serve(torch) -> dict:
+    """internlm2-20b at full config in bf16 through the port's
+    ``ClusterServingEngine`` (2 thread workers x 4 slots, ``max_len`` 2048),
+    worker-driven (decode blocks of 16), lockstep, and worker-driven on one
+    worker of 4 slots, against one 4-slot ``ServingEngine`` on the same 16
+    requests: token-identical transcripts, exact launch counts, tokens/s,
+    TTFT and host RPCs per emitted token for each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import migratable as mig
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ClusterServingEngine, Request, ServingEngine
+    from repro_torch.serve.handlers import _NODE_ENGINES, MAX_PROMPT
+
+    # a CUDA tensor travels as the bytes of its host copy (pinned staging)
+    t = torch.arange(48, dtype=torch.float32, device=DEVICE).reshape(6, 8)
+    check(mig.pack_dynamic([t, {"t": t}]) == mig.pack_dynamic([t.cpu(), {"t": t.cpu()}]),
+          "a CUDA tensor packs to other bytes than its CPU copy")
+
+    w, slots, max_len, block = CLUSTER["workers"], CLUSTER["slots"], 2048, 16
+    n_req, new = CLUSTER["requests"], CLUSTER["new_tokens"]
+    cfg = dataclasses.replace(get_config("internlm2-20b"), param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    # prompt + budget within the wire bound on an admission prompt: a
+    # worker-driven continuation re-admits prompt + every emitted token
+    lengths = rng.integers(64, MAX_PROMPT - new + 1, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+
+    def requests(rid0=0, k=n_req, budget=new):
+        return [Request(prompt=prompts[i % n_req], max_new_tokens=budget, rid=rid0 + i)
+                for i in range(k)]
+
+    # TTFT is read on the host for every leg: when a request's first token
+    # is in the host's hands, from the start of the drive
+    def single_first(eng):
+        """The single engine's admission ends on its first token's host
+        transfer, on the driving thread."""
+        first: dict[int, float] = {}
+        admit = eng.admit
+
+        def timed_admit(req, slot):
+            admit(req, slot)
+            first[req.rid] = time.monotonic()
+        eng.admit = timed_admit
+        return lambda: first
+
+    def lockstep_first(sched):
+        """Lockstep: the admit's reply carries the first token; its future
+        resolves when the reply is dispatched on the host (admits are the
+        only calls routed by session)."""
+        first: dict[int, float] = {}
+        submit = sched.submit
+
+        def timed_submit(fn, *args, session=None, **kw):
+            fut = submit(fn, *args, session=session, **kw)
+            if session is not None:
+                rid = int(session.split("/")[1])
+                fut.add_done_callback(lambda f: first.setdefault(rid, time.monotonic()))
+            return fut
+        sched.submit = timed_submit
+        return lambda: first
+
+    def streamed_first(eng):
+        """Worker-driven: the host's stream handler stamps ``t_first`` when
+        the first token lands in the request's host transcript."""
+        return lambda: {rid: ev["t_first"] for rid, ev in eng._events.items()
+                        if rid < n_req and "t_first" in ev}
+
+    def counts():
+        return {"decode_attention": dec.launches, "flash_attention": fla.launches,
+                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches,
+                "mamba2_ssd": ssd.launches}
+
+    def drive(name, engines, run, first_tokens, sched=None):
+        steps0 = sum(e.steps_dispatched for e in engines)
+        rpc0 = 0 if sched is None else sched.stats["submitted"] + sched.stats["oneways"]
+        routed0 = {} if sched is None else dict(sched.stats["routed"])
+        dec.launches = fla.launches = gmm.launches = mlstm.launches = ssd.launches = 0
+        t0 = time.monotonic()
+        out = run(requests())
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        first = first_tokens()
+        launches = counts()
+        steps = sum(e.steps_dispatched for e in engines) - steps0
+        tokens = sum(len(v) for v in out.values())
+        check(sorted(out) == list(range(n_req)) and all(len(v) == new for v in out.values()),
+              f"{name}: served {sorted(out)} with {sorted(len(v) for v in out.values())} tokens")
+        check(sorted(first) == list(range(n_req)),
+              f"{name}: first tokens of {sorted(first)} reached the host")
+        L = cfg.num_layers
+        expected = {"decode_attention": L * steps, "flash_attention": L * n_req,
+                    "grouped_matmul": 0, "mlstm": 0, "mamba2_ssd": 0}
+        check(launches == expected, f"{name}: launches {launches} != {expected} "
+              f"({steps} decode steps, {n_req} admissions)")
+        ttft = sorted(1e3 * (first[r] - t0) for r in range(n_req))
+        stats = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+                 "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": ttft[-1],
+                 "decode_steps": steps, "admissions": n_req, "launches": launches}
+        if sched is not None:
+            rpcs = sched.stats["submitted"] + sched.stats["oneways"] - rpc0
+            stats.update(host_rpcs=rpcs, host_rpcs_per_token=rpcs / tokens,
+                         routed={n: c - routed0.get(n, 0)
+                                 for n, c in sched.stats["routed"].items()})
+        return out, stats
+
+    def margin(rid, pos, a, b):
+        """Logit of token a minus token b at the first differing position,
+        from one prefill of the prompt and the common prefix."""
+        prefix = np.concatenate([prompts[rid], np.asarray(single_out[rid][:pos])])
+        tokens = torch.from_numpy(prefix[None, :].astype(np.int64)).to(DEVICE)
+        logits, _ = model.prefill(params, {"tokens": tokens})
+        last = logits[0, -1].float()
+        return float(last[a] - last[b])
+
+    def same(name, out):
+        for rid in range(n_req):
+            got, want = out[rid], single_out[rid]
+            if got != want:
+                pos = next(i for i, (g, x) in enumerate(zip(got, want)) if g != x)
+                check(False, f"{name}: request {rid} (prompt {len(prompts[rid])} tokens) "
+                      f"differs from the single engine at token {pos}: {got[pos]} against "
+                      f"{want[pos]}, logit margin {margin(rid, pos, got[pos], want[pos]):.4g}")
+
+    # the single engine, on this (the main) thread, as phase 5 drives it
+    eng = ServingEngine(model, params, num_slots=slots, max_len=max_len)
+    eng.run(requests(1000, 2, block + 1))                 # warm-up
+    eng.outputs.clear()
+    single_out, single = drive("single engine", [eng], eng.run, single_first(eng))
+    del eng
+    release(torch)
+    stats = {"model": cfg.name, "layers": cfg.num_layers, "dtype": "bfloat16",
+             "workers": w, "slots_per_worker": slots, "max_len": max_len,
+             "requests": n_req, "new_tokens": new, "prompt_tokens": int(lengths.sum()),
+             "decode_block": block, "single_engine": single}
+    # the third leg, one worker of as many slots as the single engine, tells
+    # the runtime's own cost from the two replicas' contention
+    for mode, worker_driven, workers in (("worker_driven", True, w), ("lockstep", False, w),
+                                         ("worker_driven_1_worker", True, 1)):
+        eng = ClusterServingEngine(model, params, num_workers=workers, slots_per_worker=slots,
+                                   max_len=max_len, worker_driven=worker_driven,
+                                   decode_block=block)
+        try:
+            replicas = [_NODE_ENGINES[k] for k in eng._engine_keys.values()]
+            check(len(replicas) == workers and all(r.params is params for r in replicas),
+                  f"{mode}: replicas do not share one copy of the params")
+            # warm-up: workers x slots requests fill every replica (a thread's
+            # first cuBLAS call sets up its handle)
+            eng.run(requests(1000, workers * slots, block + 1), timeout=600)
+            first = streamed_first(eng) if worker_driven else lockstep_first(eng.sched)
+            out, st = drive(mode, replicas, lambda r: eng.run(r, timeout=900), first,
+                            eng.sched)
+        finally:
+            eng.close()
+        del replicas, eng
+        check(len(st["routed"]) == workers and all(n > 0 for n in st["routed"].values()),
+              f"{mode}: not every worker served ({st['routed']})")
+        same(mode, out)
+        stats[mode] = st
+        release(torch)
+    check(stats["worker_driven"]["host_rpcs_per_token"] < 0.1,
+          f"worker-driven host RPCs per token {stats['worker_driven']['host_rpcs_per_token']}")
+    print(f"cluster serving {cfg.name}: " + ", ".join(
+        f"{m} {stats[m]['tokens_per_s']:.1f} tokens/s, TTFT p50 {stats[m]['ttft_ms_p50']:.1f} ms"
+        + (f", {stats[m]['host_rpcs_per_token']:.4f} host RPCs/token"
+           if "host_rpcs" in stats[m] else "")
+        for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")))
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -1331,6 +1525,14 @@ def main() -> int:
         served[arch] = serve(torch, arch)
         release(torch)
         print(f"serve {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cluster = cluster_serve(torch)
+    cluster["card"] = smi[0]
+    release(torch)
+    print(f"cluster serving took {time.perf_counter() - t0:.1f} s")
+    runs = [s["launches"] for s in served.values()] + [
+        cluster[m]["launches"]
+        for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")]
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1338,7 +1540,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": sum(s["launches"][name] for s in served.values()),
+            "launches": sum(run[name] for run in runs),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
@@ -1358,6 +1560,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     for stats in served.values():
         print(json.dumps({"serve": stats}))
+    print(json.dumps({"cluster_serve": cluster}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

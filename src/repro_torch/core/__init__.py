@@ -1,6 +1,7 @@
 """HAM core of the port.
 
 Kept light on purpose: importing ``repro_torch.core`` loads no model or
-kernel module.  Import :mod:`repro_torch.core.device_table` and
-:mod:`repro_torch.core.errors` directly.
+kernel module.  Import its modules directly: ``errors``, ``device_table``,
+and the wire layer (``flags``, ``message``, ``migratable``, ``wireplan``,
+``registry``, ``closure``, ``future``, ``executor``).
 """

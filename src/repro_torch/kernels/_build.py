@@ -15,10 +15,13 @@ raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 from pathlib import Path
 
 import torch
@@ -34,6 +37,10 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: serialises first loads (a build writes one temporary file per process)
+_LIBS_LOCK = threading.Lock()
+#: serialises the kernel modules' ``launches += 1`` (see :func:`counted`)
+_COUNT_LOCK = threading.Lock()
 #: compiler output of each build this process ran (ptxas register/spill lines)
 build_logs: dict[str, str] = {}
 
@@ -91,17 +98,37 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     ``argtypes`` set from ``signatures`` (every pointer and the stream as
     ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)[1]))
-        lib.ham_error_string.argtypes = [ctypes.c_int]
-        lib.ham_error_string.restype = ctypes.c_char_p
-        for symbol, argtypes in signatures.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:   # replicas on thread workers may reach a first load at once
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)[1]))
+            lib.ham_error_string.argtypes = [ctypes.c_int]
+            lib.ham_error_string.restype = ctypes.c_char_p
+            for symbol, argtypes in signatures.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
+
+
+def counted(launch):
+    """Decorate a kernel module's launch function: each call that returns
+    adds one to its module's ``launches`` under a lock.  Serving replicas on
+    thread workers launch at once, and a bare ``launches += 1`` on a module
+    global is a read-modify-write that two threads can interleave and lose."""
+    module = sys.modules[launch.__module__]
+
+    @functools.wraps(launch)
+    def launch_and_count(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        with _COUNT_LOCK:
+            module.launches += 1
+        return out
+    return launch_and_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

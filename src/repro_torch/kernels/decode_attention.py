@@ -91,10 +91,10 @@ def decode_attention(q, k, v, lengths):
     return _launch(q, k, v, lengths)
 
 
+@_build.counted
 def _launch(q, k, v, lengths, splits=None):
     """Launch the kernel; ``splits`` (one of :data:`SPLITS`) overrides
     :func:`num_splits`, for timing the cluster sizes against each other."""
-    global launches
     B, Hkv, qpk, d = q.shape
     S = k.shape[2]
     dtype = _build.check_inputs("decode_attention", (q, k, v))
@@ -117,5 +117,4 @@ def _launch(q, k, v, lengths, splits=None):
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention")
-    launches += 1
     return out

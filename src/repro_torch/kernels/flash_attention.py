@@ -85,8 +85,8 @@ def flash_attention(q, k, v, *, causal=True, q_per_kv=1):
     return flash_attention_heads(q[None], k[None], v[None], causal=causal)[0]
 
 
+@_build.counted
 def _launch(q, k, v, causal, out):
-    global launches
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if out is None:
@@ -107,5 +107,4 @@ def _launch(q, k, v, causal, out):
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash_attention")
-    launches += 1
     return out

@@ -86,9 +86,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@_build.counted
 def _launch(x, w):
     """Launch the kernel of :func:`route`."""
-    global launches
     dtype = _build.check_inputs("grouped_matmul", (x, w))
     E, C, d = x.shape
     f = w.shape[-1]
@@ -106,5 +106,4 @@ def _launch(x, w):
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, f"grouped_matmul ({r})")
-    launches += 1
     return out

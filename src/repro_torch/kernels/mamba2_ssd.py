@@ -101,10 +101,10 @@ def route(x) -> str:
     return "tensor_cores" if x.dtype == torch.bfloat16 else "cuda_cores"
 
 
+@_build.counted
 def _launch(x, dt, A, Bm, Cm, D, state, chunk, kernel=None):
     """Launch the kernel; ``kernel`` overrides the route (for timing the
     CUDA-core route on bf16 inputs)."""
-    global launches
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
@@ -145,7 +145,6 @@ def _launch(x, dt, A, Bm, Cm, D, state, chunk, kernel=None):
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "ssd")
-    launches += 1
     return y, hN
 
 

@@ -117,9 +117,9 @@ def route(q, v) -> str:
     return "cuda_cores"
 
 
+@_build.counted
 def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
     """Launch the kernel; ``kernel`` overrides the route (for timing each)."""
-    global launches
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     if out is None:
@@ -165,5 +165,4 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "mlstm")
-    launches += 1
     return out, (C, n, m)

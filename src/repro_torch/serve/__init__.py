@@ -1,1 +1,3 @@
-"""Serving of the port: the continuous-batching engine (``engine``)."""
+"""Serving of the port: the continuous-batching engines (``engine``), the
+cluster-serving control handlers (``handlers``) and the worker-resident
+decode loop (``stream``)."""

@@ -7,6 +7,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -141,3 +142,51 @@ def test_cpu_wrappers_count_no_launches(kernel):
     out = _call(kernel, "cpu")
     assert out.device.type == "cpu" and torch.isfinite(out).all()
     assert _launch_counts() == before
+
+
+KERNEL_MODULES = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm",
+                  "mamba2_ssd"]
+
+
+class _YieldingCount(int):
+    """A launch count whose addition hands the interpreter to another thread
+    between the read and the write of ``launches += 1``, as a preempted or
+    free-threaded interpreter may: an unlocked count then loses updates."""
+
+    def __add__(self, other):
+        time.sleep(0)
+        return _YieldingCount(int(self) + other)
+
+
+@pytest.mark.parametrize("kernel", KERNEL_MODULES, ids=KERNEL_IDS)
+def test_launch_counters_stay_exact_under_threads(kernel):
+    """Serving replicas on thread workers launch kernels at once: each
+    wrapper's launch is counted under a lock (``_build.counted``), so
+    concurrent counted calls through a stub launch lose no update."""
+    import importlib
+    import threading
+
+    from repro_torch.kernels import _build
+
+    module = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    assert module._launch.__wrapped__ is not None  # the real launch is counted
+    def stub():
+        return None
+
+    stub.__module__ = module.__name__  # counted into the kernel module
+    stub = _build.counted(stub)
+    threads, calls = 16, 500
+    before = module.launches
+    module.launches = _YieldingCount(0)
+    try:
+        workers = [threading.Thread(target=lambda: [stub() for _ in range(calls)])
+                   for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+        counted = int(module.launches)
+    finally:
+        module.launches = before
+    assert counted == threads * calls
