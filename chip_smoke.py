@@ -43,9 +43,23 @@ Phases, in order; any failure raises and exits non-zero:
    tokens, each token-identical to one 4-slot ``ServingEngine`` on the same
    requests; exact decode and flash launch counts, tokens/s, TTFT and host
    RPCs per emitted token (below 0.1 worker-driven);
-7. print the kernel line, one serving line per model and the cluster
-   serving line (JSON);
-8. last line: ``{"ok": true, "device": {...}}``.
+7. process fabrics (host code; the reference's non-smoke sizes): 7a runs
+   right after phase 1, before this process holds a CUDA context, on forked
+   workers (and fresh interpreters): the paper's Fig. 3 analogue (median
+   round trip of ``demo/empty`` and ``demo/empty_static`` over 2000 calls on
+   the local fabric, shm with a forked and with a fresh-interpreter worker,
+   and socket with a fresh-interpreter worker), chain-replicated puts on
+   ``ClusterPool.shm(4, replicas=0/1/2)`` with every holder's bytes checked,
+   a killed primary recovered from its replica, and ``pool.mutate`` of
+   ``demo/saxpy`` against get-mutate-put, bit for bit as numpy; 7b runs
+   after phase 6 with CUDA up: an shm and a socket fresh-interpreter worker
+   pass the digest ping, add two 8 MiB float32 CUDA tensors bit for bit as
+   ``(a + b).cpu()`` and hold a CUDA tensor put into a buffer, and the shm
+   worker answers again after a kill and a respawn; every worker not killed
+   on purpose leaves on the shutdown message with exit code 0;
+8. print the kernel line, one serving line per model, the cluster serving
+   line and the process-fabrics line (JSON);
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 """
@@ -1480,6 +1494,320 @@ def cluster_serve(torch) -> dict:
     return stats
 
 
+# -- phase 7: process fabrics (host code on the card's machine) ---------------
+
+# the reference's own non-smoke sizes: benchmarks/offload_overhead.py (Fig. 3
+# analogue) and benchmarks/cluster.py's data-plane section
+FIG3 = {"calls": 2000, "warmup": 200}
+FIG3_LEGS = ("local", "shm_fork", "shm_fresh", "socket_fresh")
+CHAIN = {"workers": 4, "buffers": 8, "elems": 128 << 10, "replicas": (0, 1, 2)}
+MUTATE = {"nbytes": (1 << 20, 8 << 20), "iters": 5}
+FRESH_ADD_NBYTES = 8 << 20  # each float32 CUDA operand of phase 7b's demo/add
+FRESH_RING = 1 << 26  # shm ring for 7b: a 16 MiB request frame must fit
+
+
+def fabric_registry():
+    """The host's handler table for phase 7: the runtime's internal and
+    data-plane handlers, the cluster pool's and the demo handlers, sealed in
+    the default registry that forked workers inherit and fresh interpreters
+    re-derive from the same imports."""
+    import repro_torch.cluster.pool  # noqa: F401  (_cluster/*, _ham/buf_*)
+    import repro_torch.offload.demo_handlers  # noqa: F401  (demo/*, chaos/*)
+    from repro_torch.core.registry import default_registry
+
+    reg = default_registry()
+    if not reg.initialised:
+        reg.init()
+    return reg
+
+
+def median_us(fn, n: int, warmup: int) -> float:
+    """Median host time of one call of ``fn`` over ``n`` calls, after
+    ``warmup`` calls (microseconds)."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return 1e6 * ts[n // 2]
+
+
+def start_worker(leg: str, reg, ring: int = 1 << 24):
+    """One worker on node 1 for ``leg`` (shm_fork, shm_fresh, socket_fresh)
+    and the host's domain over its fabric; returns (domain, procs, fabric).
+    The worker has passed the digest ping when this returns."""
+    from repro_torch.comm.shm import ShmFabric
+    from repro_torch.comm.socket import SocketFabric
+    from repro_torch.core.closure import f2f
+    from repro_torch.core.registry import verify_peer_digest
+    from repro_torch.offload import worker
+    from repro_torch.offload.api import OffloadDomain
+
+    mods = worker.registered_setup_modules(reg)
+    if leg == "socket_fresh":
+        fab = SocketFabric(2)
+        fab.endpoint(0)
+        procs = [worker.spawn_socket_worker_subprocess(1, 2, fab.base_port, mods)]
+    else:
+        fab = ShmFabric(2, capacity=ring)
+        procs = (worker.spawn_shm_workers(fab, [1], mods) if leg == "shm_fork"
+                 else [worker.spawn_shm_worker_subprocess(fab, 1, mods)])
+    dom = OffloadDomain(fab, registry=reg, inline_host=True)
+    try:
+        check(dom.ping(1, 7, timeout=60.0) == 7, f"{leg}: the worker did not answer")
+        digest = dom.sync(1, f2f("_cluster/digest", registry=reg), 30.0)
+        verify_peer_digest(reg.table, bytes.fromhex(digest))
+    except BaseException:
+        stop_worker(dom, procs, fab, exempt=procs)
+        raise
+    return dom, procs, fab
+
+
+def stop_worker(dom, procs, fab, exempt=()) -> None:
+    """Shut the domain down, reap the workers and close the fabric; every
+    worker not in ``exempt`` (one killed on purpose) must have left on the
+    shutdown message with exit code 0, not by ``reap``'s terminate or kill."""
+    from repro_torch.offload.worker import reap
+
+    try:
+        dom.shutdown()
+        reap(procs, timeout=5.0)
+    finally:
+        fab.close()
+    for p in procs:
+        if any(p is q for q in exempt):
+            continue
+        code = p.exitcode if hasattr(p, "exitcode") else p.returncode
+        check(code == 0, f"a worker did not shut down cleanly (exit code {code})")
+
+
+def fig3_legs(reg) -> dict:
+    """Median round trip of ``demo/empty`` (dynamic payload) and
+    ``demo/empty_static`` (compiled plan) on each leg, microseconds."""
+    from repro_torch.core.closure import f2f
+    from repro_torch.offload.api import OffloadDomain
+
+    out = {}
+    for leg in FIG3_LEGS:
+        if leg == "local":
+            dom, procs, fab = OffloadDomain.local(2, registry=reg), [], None
+        else:
+            dom, procs, fab = start_worker(leg, reg)
+        try:
+            out[leg] = {}
+            for name in ("demo/empty", "demo/empty_static"):
+                call = f2f(name, registry=reg)
+                check(dom.sync(1, call, 30.0) is None, f"{leg}: {name} returned a value")
+                out[leg][name.split("/")[1] + "_us"] = median_us(
+                    lambda: dom.sync(1, call, 30.0), FIG3["calls"], FIG3["warmup"])
+        finally:
+            if fab is None:
+                dom.shutdown()
+            else:
+                stop_worker(dom, procs, fab)
+    return out
+
+
+def wait_for(cond, what: str, timeout: float = 20.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def holders_equal(pool, ptr, payload) -> list[int]:
+    """Every holder of ``ptr`` returns ``payload``'s bytes; returns them."""
+    rec = pool.directory.lookup(ptr.handle)
+    holders = [rec.primary, *rec.replicas]
+    for h in holders:
+        got = pool.domain.get(ptr.at(h, rec.epoch))
+        check(got.dtype == payload.dtype and got.tobytes() == payload.tobytes(),
+              f"holder {h} of buffer {ptr.handle} returned other bytes")
+    return holders
+
+
+def chain_put_and_failure(reg) -> dict:
+    """Chain-replicated puts on ``ClusterPool.shm(4, replicas=R)``: eight
+    1 MiB float64 buffers, a warm put and a timed put each, and the host
+    pushing the same bytes to every holder itself; each holder returns the
+    bytes after every put.  On R = 1, the worker holding the first buffer's
+    primary is killed: its replica is promoted and every buffer reads back."""
+    from repro_torch.cluster import ClusterPool
+
+    rng = np.random.default_rng(7)
+    out: dict = {}
+    for r in CHAIN["replicas"]:
+        pool = ClusterPool.shm(CHAIN["workers"], registry=reg, replicas=r)
+        try:
+            pool.ping_all(timeout=60.0)
+            ptrs = [pool.allocate((CHAIN["elems"],), "float64", session=f"c{r}-{i}")
+                    for i in range(CHAIN["buffers"])]
+            chain_ts, seq_ts, payloads = [], [], []
+            for ptr in ptrs:
+                warm = rng.standard_normal(CHAIN["elems"])
+                pool.put(warm, ptr)
+                check(len(holders_equal(pool, ptr, warm)) == r + 1,
+                      f"replicas={r}: a buffer has another holder count")
+                payload = rng.standard_normal(CHAIN["elems"])
+                t0 = time.perf_counter()
+                pool.put(payload, ptr)
+                chain_ts.append(time.perf_counter() - t0)
+                holders = holders_equal(pool, ptr, payload)
+                t0 = time.perf_counter()
+                for h in holders:
+                    pool.domain.put(payload, ptr.at(h))
+                seq_ts.append(time.perf_counter() - t0)
+                holders_equal(pool, ptr, payload)
+                payloads.append(payload)
+            out[f"replicas{r}"] = {"put_ms": 1e3 * float(np.median(chain_ts)),
+                                   "host_sequential_ms": 1e3 * float(np.median(seq_ts))}
+            if r == 1:
+                victim = pool.directory.lookup(ptrs[0].handle).primary
+                t0 = time.perf_counter()
+                pool.kill(victim)
+                wait_for(lambda: pool.directory.lookup(ptrs[0].handle).primary != victim,
+                         "the replica's promotion")
+                promoted_s = time.perf_counter() - t0
+                check(pool.directory.stats["lost"] == 0, "a buffer was lost with its primary")
+                for ptr, payload in zip(ptrs, payloads):
+                    got = pool.get(ptr)
+                    check(got.tobytes() == payload.tobytes(),
+                          "a buffer read back other bytes after its primary died")
+                out["failure"] = {"killed": victim, "promoted_ms": 1e3 * promoted_s,
+                                  "buffers_intact": len(ptrs)}
+        finally:
+            pool.close()
+    return out
+
+
+def mutate_at_data(reg) -> dict:
+    """``pool.mutate(demo/saxpy)`` at the primary against get-mutate-put on
+    ``ClusterPool.shm(2, replicas=1)``, 1 MiB and 8 MiB float64 buffers; the
+    buffer ends equal to numpy's saxpy, applied as often, bit for bit."""
+    from repro_torch.cluster import ClusterPool
+    from repro_torch.core.closure import f2f
+
+    alpha, rng, out = 0.5, np.random.default_rng(11), {}
+    pool = ClusterPool.shm(2, registry=reg, replicas=1)
+    try:
+        pool.ping_all(timeout=60.0)
+        home = pool.worker_nodes[0]
+        for nbytes in MUTATE["nbytes"]:
+            n = nbytes // 8
+            x0, y0 = rng.standard_normal(n), rng.standard_normal(n)
+            x = pool.allocate((n,), "float64", node=home, session=f"m-{nbytes}")
+            y = pool.allocate((n,), "float64", node=home, session=f"m-{nbytes}")
+            pool.put(x0, x)
+            pool.put(y0, y)
+            want = y0.copy()
+            fn = f2f("demo/saxpy", alpha, x, y, registry=reg)
+            mut_ts, naive_ts = [], []
+            for _ in range(1 + MUTATE["iters"]):  # the first is the warm-up
+                t0 = time.perf_counter()
+                pool.mutate(fn)
+                mut_ts.append(time.perf_counter() - t0)
+                want += alpha * x0
+            check(pool.get(y).tobytes() == want.tobytes(), "mutate-at-data != numpy saxpy")
+            xs = np.array(pool.get(x))
+            for _ in range(MUTATE["iters"]):
+                t0 = time.perf_counter()
+                ys = np.array(pool.get(y))  # shm get is a read-only view
+                ys += alpha * xs
+                pool.put(ys, y)
+                naive_ts.append(time.perf_counter() - t0)
+                want += alpha * x0
+            check(pool.get(y).tobytes() == want.tobytes(), "get-mutate-put != numpy saxpy")
+            out[str(nbytes)] = {"mutate_ms": 1e3 * float(np.median(mut_ts[1:])),
+                                "get_mutate_put_ms": 1e3 * float(np.median(naive_ts))}
+    finally:
+        pool.close()
+    return out
+
+
+def process_fabrics_forked() -> dict:
+    """Phase 7a, before any CUDA context exists in this process: the Fig. 3
+    legs, chain put with the failure leg, and mutate-at-data."""
+    import os
+    import platform
+    import shutil
+
+    from repro_torch.comm.doorbell import futex_available
+
+    reg = fabric_registry()
+    t0 = time.perf_counter()
+    out = {"machine": platform.machine(), "cpu_count": os.cpu_count(),
+           "futex": futex_available(),
+           "dev_shm_bytes": shutil.disk_usage("/dev/shm").total,
+           "fig3_median_us": fig3_legs(reg), "chain_put": chain_put_and_failure(reg),
+           "mutate_at_data": mutate_at_data(reg)}
+    out["forked_s"] = time.perf_counter() - t0
+    return out
+
+
+def process_fabrics_fresh(torch) -> dict:
+    """Phase 7b, with CUDA up in this process (the case fresh interpreters
+    exist for): an shm and a socket fresh-interpreter worker each pass the
+    digest ping, add two 8 MiB float32 CUDA tensors (staged through pinned
+    host memory) bit for bit as ``(a + b).cpu()``, and hold a CUDA tensor
+    put into a buffer; the shm worker is then killed, respawned under the
+    same id and called again."""
+    from repro_torch.core.closure import f2f
+    from repro_torch.offload.worker import registered_setup_modules, spawn_shm_worker_subprocess
+
+    reg = fabric_registry()
+    n = FRESH_ADD_NBYTES // 4
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn(n, device=DEVICE, generator=gen)
+    b = torch.randn(n, device=DEVICE, generator=gen)
+    want = (a + b).cpu().numpy()
+    a_host = a.cpu().numpy()
+
+    def drive(dom, leg: str) -> dict:
+        """Two adds and two puts: the first of each also pays for touching
+        the transport's buffers (a fresh ring's pages) for the first time."""
+        out = {}
+        for i in range(2):
+            t0 = time.perf_counter()
+            got = dom.sync(1, f2f("demo/add", a, b, registry=reg), 60.0)
+            out[f"add_8MiB_ms_{i}"] = 1e3 * (time.perf_counter() - t0)
+            check(isinstance(got, np.ndarray) and got.dtype == np.float32
+                  and got.tobytes() == want.tobytes(), f"{leg}: demo/add != (a + b).cpu()")
+        ptr = dom.allocate(1, (n,), "float32")
+        for i in range(2):
+            t0 = time.perf_counter()
+            dom.put(a, ptr)
+            out[f"put_8MiB_ms_{i}"] = 1e3 * (time.perf_counter() - t0)
+            back = dom.get(ptr)
+            check(back.tobytes() == a_host.tobytes(),
+                  f"{leg}: a put CUDA tensor read back other bytes")
+        dom.free(ptr)
+        return out
+
+    out = {}
+    for leg in ("socket_fresh", "shm_fresh"):
+        t0 = time.perf_counter()
+        dom, procs, fab = start_worker(leg, reg, ring=FRESH_RING)
+        try:
+            out[leg] = {"start_s": time.perf_counter() - t0, **drive(dom, leg)}
+            if leg == "shm_fresh":
+                procs[0].kill()
+                procs[0].wait(10.0)
+                time.sleep(0.5)  # the dead interpreter's resource tracker exits
+                t0 = time.perf_counter()
+                fab.prepare_restart(1)
+                dom.host.endpoint.reset_peer(1)
+                procs.append(spawn_shm_worker_subprocess(fab, 1, registered_setup_modules(reg)))
+                check(dom.ping(1, 9, timeout=60.0) == 9, "the respawned shm worker did not answer")
+                out[leg]["respawn_s"] = time.perf_counter() - t0
+                out[leg]["after_respawn"] = drive(dom, leg + " respawned")
+        finally:
+            stop_worker(dom, procs, fab, exempt=procs[:1] if leg == "shm_fresh" else ())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1493,6 +1821,11 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0])
+    # phase 7a forks workers: before anything in this process touches a
+    # CUDA context (is_available only counts the devices)
+    t0 = time.perf_counter()
+    fabrics = process_fabrics_forked()
+    print(f"phase 7a (forked process fabrics) took {time.perf_counter() - t0:.1f} s")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -1530,6 +1863,12 @@ def main() -> int:
     cluster["card"] = smi[0]
     release(torch)
     print(f"cluster serving took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fabrics["fresh_interpreter"] = process_fabrics_fresh(torch)
+    fabrics["fresh_s"] = time.perf_counter() - t0
+    fabrics["card"] = smi[0]
+    release(torch)
+    print(f"phase 7b (fresh-interpreter process fabrics) took {fabrics['fresh_s']:.1f} s")
     runs = [s["launches"] for s in served.values()] + [
         cluster[m]["launches"]
         for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")]
@@ -1561,6 +1900,7 @@ def main() -> int:
     for stats in served.values():
         print(json.dumps({"serve": stats}))
     print(json.dumps({"cluster_serve": cluster}))
+    print(json.dumps({"process_fabrics": fabrics}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,12 @@
 """Cluster worker pool: lifecycle + liveness for a set of HAM offload nodes.
 
-Port of ``repro.cluster.pool``, ``local`` mode only: :meth:`ClusterPool.shm`
-and :meth:`ClusterPool.socket` raise :class:`NotImplementedError` until the
-process fabrics and workers are ported (ROADMAP item 11b).  The rest of
-this module is the reference's.
-
 HAM-Offload (paper §2) targets one hand-picked node per call; this module
 supplies the fleet underneath a :class:`~repro_torch.cluster.scheduler.Scheduler`:
 
-* :class:`ClusterPool` owns one fabric's worth of workers: in-process
-  threads over the local fabric (``local``, the only mode ported);
+* :class:`ClusterPool` owns one fabric's worth of workers — in-process
+  threads (``local``), forked processes over shared-memory rings (``shm``,
+  the SCIF/DMA analogue), or fresh interpreters over TCP (``socket``, the
+  heterogeneous-binaries case);
 * a monitor thread watches liveness and announces deaths to subscribers
   (the scheduler fails that node's in-flight futures and reroutes);
 * writes to replicated buffers ride **chain replication** (`put`, and the
@@ -19,7 +16,9 @@ supplies the fleet underneath a :class:`~repro_torch.cluster.scheduler.Scheduler
   explicit :meth:`ClusterPool.restart`): the fabric drops frames queued
   toward the corpse, the host endpoint forgets stale transport state, and a
   replacement attaches under the same node id;
-* :meth:`ClusterPool.close` stops every worker and tears the fabric down.
+* :meth:`ClusterPool.close` reaps every child and tears the fabric down —
+  together with ``ShmFabric``'s atexit unlink this is the fix for the
+  ``/dev/shm`` segment leak when a child dies mid-run.
 
 Fault-injection helpers (``kill``) are first-class: a scheduler that cannot
 be tested against a dying worker cannot be trusted with one.
@@ -35,7 +34,8 @@ unrelated replacement.
 
 :meth:`ClusterPool.add_node` (host-driven, in order):
 
-1. ``fabric.add_node()`` provisions the next id's transport resources;
+1. ``fabric.add_node()`` provisions transport resources (shm ring pairs, a
+   port) for the next id;
 2. the host endpoint attaches the id (``attach_peer``);
 3. every live worker is told ``_cluster/attach_peer`` as a **sync** call —
    when step 4 starts, every survivor can already address the newcomer
@@ -140,7 +140,11 @@ from repro_torch.offload.dataplane import (
     tracked_handles,
 )
 from repro_torch.offload.runtime import NodeRuntime, ReplayCache
-from repro_torch.offload.worker import NOT_PORTED
+from repro_torch.offload.worker import (
+    reap,
+    spawn_shm_workers,
+    spawn_socket_worker_subprocess,
+)
 
 
 # --------------------------------------------------------------------------
@@ -277,6 +281,56 @@ class _ThreadWorker:
         return _ThreadWorker(self.node_id, rt, pool)
 
 
+class _ForkWorker:
+    """Forked child over shm rings (spawn_shm_workers)."""
+
+    def __init__(self, node_id: int, proc, pool: "ClusterPool"):
+        self.node_id = node_id
+        self.proc = proc
+        self._pool = pool
+
+    def alive(self) -> bool:
+        return self.proc.is_alive()
+
+    def kill(self) -> None:
+        self.proc.kill()
+
+    def reap(self, timeout: float = 5.0) -> None:
+        reap([self.proc], timeout)
+
+    def respawn(self) -> "_ForkWorker":
+        pool = self._pool
+        proc = spawn_shm_workers(pool.fabric, [self.node_id],
+                                 pool._setup_modules)[0]
+        return _ForkWorker(self.node_id, proc, pool)
+
+
+class _SubprocessWorker:
+    """Fresh-interpreter child over TCP (spawn_socket_worker_subprocess)."""
+
+    def __init__(self, node_id: int, popen, pool: "ClusterPool"):
+        self.node_id = node_id
+        self.proc = popen
+        self._pool = pool
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def kill(self) -> None:
+        self.proc.kill()
+
+    def reap(self, timeout: float = 5.0) -> None:
+        reap([self.proc], timeout)
+
+    def respawn(self) -> "_SubprocessWorker":
+        pool = self._pool
+        popen = spawn_socket_worker_subprocess(
+            self.node_id, pool.fabric.num_nodes, pool.fabric.base_port,
+            pool._setup_modules,
+        )
+        return _SubprocessWorker(self.node_id, popen, pool)
+
+
 # --------------------------------------------------------------------------
 # the pool
 # --------------------------------------------------------------------------
@@ -298,6 +352,7 @@ class ClusterPool:
         *,
         monitor_interval: float = 0.1,
         auto_restart: bool = False,
+        setup_modules=None,
         policy_factory=DirectPolicy,
         mode: str = "local",
         replicas: int = 0,
@@ -311,7 +366,7 @@ class ClusterPool:
         self.domain = domain
         self.fabric = domain.fabric
         self.host = domain.host
-        self._mode = mode  # launch mode for elastic spawns (local only)
+        self._mode = mode  # launch mode for elastic spawns (local/shm/socket)
         self._workers = dict(workers)
         self._dead: set[int] = set()
         self._removing: set[int] = set()  # mid-remove: no auto_restart
@@ -350,6 +405,11 @@ class ClusterPool:
         self.on_death(self._dataplane_on_death)
         self.on_join(self._dataplane_on_join)
         self.on_restart(self._dataplane_on_join)
+        #: None => auto-derive from the host registry at each spawn
+        #: (registered_setup_modules), so restarts track late registrations
+        self._setup_modules = (
+            None if setup_modules is None else list(setup_modules)
+        )
         self._policy_factory = policy_factory
         self.auto_restart = auto_restart
         # -- auto-restart circuit breaker (module docs) --------------------
@@ -409,14 +469,62 @@ class ClusterPool:
         return pool
 
     @classmethod
-    def shm(cls, num_workers: int, **kw) -> "ClusterPool":
-        """Forked processes over shared-memory rings (ROADMAP item 11b)."""
-        raise NotImplementedError(f"ClusterPool.shm {NOT_PORTED}")
+    def shm(cls, num_workers: int, *, registry=None, capacity: int = 1 << 24,
+            setup_modules=None, wrap_fabric=None, **kw) -> "ClusterPool":
+        """Forked processes over shared-memory rings.
+
+        ``setup_modules=None`` auto-derives the worker import list from the
+        host's default registry (same-source key agreement by construction).
+        ``wrap_fabric=`` as in :meth:`local` — forked workers inherit the
+        wrapper, so both directions of every link are under fault injection.
+        """
+        from repro_torch.comm.shm import ShmFabric
+
+        reg = registry or default_registry()
+        fabric = ShmFabric(num_workers + 1, capacity=capacity)
+        if wrap_fabric is not None:
+            fabric = wrap_fabric(fabric)
+        procs = spawn_shm_workers(fabric, list(range(1, num_workers + 1)),
+                                  setup_modules)
+        domain = OffloadDomain(fabric, registry=reg)
+        pool = cls.__new__(cls)
+        workers = {
+            node: _ForkWorker(node, proc, pool)
+            for node, proc in zip(range(1, num_workers + 1), procs)
+        }
+        pool.__init__(domain, workers, setup_modules=setup_modules,
+                      mode="shm", **kw)
+        return pool
 
     @classmethod
-    def socket(cls, num_workers: int, **kw) -> "ClusterPool":
-        """Fresh-interpreter workers over loopback TCP (ROADMAP item 11b)."""
-        raise NotImplementedError(f"ClusterPool.socket {NOT_PORTED}")
+    def socket(cls, num_workers: int, *, registry=None, setup_modules=None,
+               wrap_fabric=None, **kw) -> "ClusterPool":
+        """Fresh-interpreter workers over loopback TCP (``setup_modules``
+        as in :meth:`shm` — None auto-derives from the host registry).
+        ``wrap_fabric=`` as in :meth:`local`; socket workers build their own
+        endpoints in the child interpreter, so only the HOST side of each
+        link is wrapped — chaos recv-side injection (keyed by the frame's
+        ``src_node``) still exercises both directions."""
+        from repro_torch.comm.socket import SocketFabric
+
+        reg = registry or default_registry()
+        fabric = SocketFabric(num_workers + 1)
+        if wrap_fabric is not None:
+            fabric = wrap_fabric(fabric)
+        popens = [
+            spawn_socket_worker_subprocess(node, num_workers + 1,
+                                           fabric.base_port, setup_modules)
+            for node in range(1, num_workers + 1)
+        ]
+        domain = OffloadDomain(fabric, registry=reg)
+        pool = cls.__new__(cls)
+        workers = {
+            node: _SubprocessWorker(node, popen, pool)
+            for node, popen in zip(range(1, num_workers + 1), popens)
+        }
+        pool.__init__(domain, workers, setup_modules=setup_modules,
+                      mode="socket", **kw)
+        return pool
 
     # -- introspection -----------------------------------------------------
 
@@ -1218,6 +1326,16 @@ class ClusterPool:
             ).enable_depth_report(dst=self.domain.host_node).start()
             self.domain._inproc[node] = rt  # direct data plane follows
             return _ThreadWorker(node, rt, self)
+        if self._mode == "shm":
+            proc = spawn_shm_workers(self.fabric, [node],
+                                     self._setup_modules)[0]
+            return _ForkWorker(node, proc, self)
+        if self._mode == "socket":
+            popen = spawn_socket_worker_subprocess(
+                node, self.fabric.num_nodes, self.fabric.base_port,
+                self._setup_modules,
+            )
+            return _SubprocessWorker(node, popen, self)
         raise OffloadError(f"unknown pool mode {self._mode!r}")
 
     def add_node(self, *, timeout: float = 30.0) -> int:
@@ -1427,7 +1545,7 @@ class ClusterPool:
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop monitoring, terminate + reap every worker, tear down the
-        domain/fabric.  Idempotent."""
+        domain/fabric (unlinking shm segments).  Idempotent."""
         if self._closed:
             return
         self._closed = True

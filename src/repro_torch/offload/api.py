@@ -26,6 +26,7 @@ from repro_torch.core.errors import OffloadError
 from repro_torch.core.executor import DirectPolicy
 from repro_torch.core.future import _UNSET, Future, as_completed, gather
 from repro_torch.core.message import encode_frame, FLAG_DYNAMIC, FLAG_STATIC
+from repro_torch.core.migratable import as_numpy
 from repro_torch.core.registry import default_registry
 from repro_torch.offload.buffer import BufferPtr
 from repro_torch.offload.runtime import NodeRuntime, current_node
@@ -170,14 +171,15 @@ class OffloadDomain:
 
                 def _store():
                     flat = rt.buffers.flat(ptr)
-                    src_flat = np.ascontiguousarray(src).reshape(-1)
+                    src_flat = np.ascontiguousarray(as_numpy(src)).reshape(-1)
                     flat[offset : offset + src_flat.size] = src_flat.astype(
                         flat.dtype, copy=False
                     )
 
                 self._run_direct(_store)
                 return
-        arr = np.ascontiguousarray(src)
+        # a torch.Tensor (CUDA too) travels as its host copy, as a leaf does
+        arr = np.ascontiguousarray(as_numpy(src))
         limit = self.chunk_nbytes if chunk_nbytes is None else chunk_nbytes
         # clamp to what the transport can move in one frame (shm ring size),
         # leaving headroom for the frame header + TLV prefix
@@ -223,7 +225,7 @@ class OffloadDomain:
         strictly cheaper than framing a wire chain.  Otherwise the wire
         path runs: the chain forwarding executes in the primary's handler
         context."""
-        arr = np.ascontiguousarray(src)
+        arr = np.ascontiguousarray(as_numpy(src))
         hops = [int(h) for h in hops]
         if self.direct_data_plane:
             holders = [int(ptr.node), *hops]

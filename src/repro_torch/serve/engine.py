@@ -411,9 +411,12 @@ class ClusterServingEngine:
     def _add_replica(self, node: int) -> None:
         rt = self.pool.domain._inproc.get(node)
         if rt is None:
-            from repro_torch.offload.worker import NOT_PORTED
-
-            raise NotImplementedError(f"replicas on process workers {NOT_PORTED}")
+            # the reference builds no replica here and returns; the port
+            # never leaves a worker silently without one
+            raise NotImplementedError(
+                f"node {node} has no in-process runtime: serving replicas run "
+                "on thread workers only (ClusterPool.local), as in the reference"
+            )
         self._drop_replica(node)  # a restarted node gets a fresh engine
         eng = ServingEngine(
             self._model, self._params, num_slots=self.slots_per_worker,

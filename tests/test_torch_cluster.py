@@ -1,9 +1,10 @@
-"""The port's cluster pool + scheduler (counterpart of tests/test_cluster.py,
-thread workers over the local fabric): routing policies, credit flow
-control, pipelined completions, worker death/restart, elastic membership;
-the process modes raise until ROADMAP item 11b."""
+"""The port's cluster pool + scheduler (counterpart of tests/test_cluster.py):
+routing policies, credit flow control, pipelined completions, worker
+death/restart and elastic membership on thread workers; worker death,
+restart, elastic membership and shm segment hygiene on forked processes;
+and every process entry point starting a worker that answers."""
 
-import threading
+import os
 import time
 
 import numpy as np
@@ -11,6 +12,7 @@ import pytest
 
 import repro_torch.cluster.pool  # noqa: F401 — registers _cluster/* at collection,
 #                            before any test seals the default registry
+import repro_torch.offload.demo_handlers  # noqa: F401 — registers demo/* at collection
 from repro_torch.cluster import ClusterPool, Scheduler, as_completed, gather
 from repro_torch.cluster.pool import register_cluster_handlers
 from repro_torch.core.closure import f2f
@@ -19,7 +21,7 @@ from repro_torch.core.errors import (
     OffloadError,
     RemoteExecutionError,
 )
-from repro_torch.core.registry import HandlerRegistry
+from repro_torch.core.registry import HandlerRegistry, default_registry, verify_peer_digest
 from repro_torch.offload.runtime import register_internal_handlers
 
 
@@ -378,34 +380,177 @@ def test_locality_routes_to_byte_heavy_node(pool):
     assert sched.stats["routed"][2] == 1
 
 
-# -- process workers: not ported yet (ROADMAP item 11b) ---------------------
+# -- worker failure (forked processes over shm) ------------------------------
 
 
-def _process_entry_points():
+def _default_registry_ready():
+    reg = default_registry()
+    register_cluster_handlers(reg)  # no-op if already present/sealed
+    if not reg.initialised:
+        reg.init()
+    return reg
+
+
+@pytest.mark.fork
+def test_fork_worker_killed_mid_stream_fails_inflight_and_reroutes():
+    """The failure-semantics contract, against a REAL process death:
+    kill one forked worker while its calls are in flight; the scheduler
+    must mark it dead, fail those futures with RemoteExecutionError, and
+    route subsequent calls to the survivor."""
+    reg = _default_registry_ready()
+    pool = ClusterPool.shm(2, registry=reg)
+    try:
+        sched = Scheduler(pool, policy="round_robin", max_inflight=8)
+        pool.ping_all()
+        inflight = [sched.submit(_sleep(reg, 3.0), node=1) for _ in range(3)]
+        time.sleep(0.2)  # let the worker start executing
+        pool.kill(1)
+        deadline = time.time() + 10
+        while 1 in sched.live_nodes() and time.time() < deadline:
+            time.sleep(0.05)
+        assert sched.live_nodes() == [2], "scheduler must mark the corpse dead"
+        for f in inflight:
+            with pytest.raises(RemoteExecutionError, match="died"):
+                f.get(10)
+        assert sched.stats["failed_inflight"] == 3
+        results = gather([sched.submit(_spin(reg)) for _ in range(4)], 30)
+        assert results == [45] * 4
+        assert sched.stats["routed"][2] >= 4  # everything rerouted
+    finally:
+        pool.close()
+
+
+@pytest.mark.fork
+def test_fork_worker_restart_rejoins_pool():
+    reg = _default_registry_ready()
+    pool = ClusterPool.shm(2, registry=reg)
+    try:
+        sched = Scheduler(pool, max_inflight=4)
+        pool.ping_all()
+        pool.kill(1)
+        deadline = time.time() + 10
+        while 1 in sched.live_nodes() and time.time() < deadline:
+            time.sleep(0.05)
+        pool.restart(1)
+        deadline = time.time() + 10
+        while 1 not in sched.live_nodes() and time.time() < deadline:
+            time.sleep(0.05)
+        assert sched.live_nodes() == [1, 2]
+        assert sched.submit(_spin(reg), node=1).get(20) == 45
+    finally:
+        pool.close()
+
+
+@pytest.mark.fork
+def test_fork_elastic_add_remove_node_under_traffic():
+    """Elastic membership over a REAL process fabric: grow a forked shm
+    pool under traffic (ring creation + attach_peer broadcast + spawn +
+    digest verify), then drain-remove the newcomer and reclaim its rings."""
+    reg = _default_registry_ready()
+    pool = ClusterPool.shm(2, registry=reg)
+    try:
+        sched = Scheduler(pool, max_inflight=8)
+        pool.ping_all()
+        inflight = [sched.submit(_sleep(reg, 0.05)) for _ in range(8)]
+        new = pool.add_node()
+        assert new == 3
+        assert sched.live_nodes() == [1, 2, 3]
+        # traffic reaches the newcomer, pinned and policy-routed
+        assert sched.submit(_spin(reg), node=new).get(20) == 45
+        results = gather(
+            [sched.submit(_spin(reg)) for _ in range(12)] + inflight, 30
+        )
+        assert results[:12] == [45] * 12
+        assert sched.stats["routed"][new] >= 1
+
+        pool.remove_node(new, drain=True)
+        assert sched.live_nodes() == [1, 2]
+        assert sched.stats["failed_inflight"] == 0
+        # the retired node's ring segments are unlinked immediately
+        assert not any(
+            f.startswith(pool.fabric.prefix) and f.endswith("_3")
+            or f.startswith(f"{pool.fabric.prefix}_3_")
+            for f in os.listdir("/dev/shm")
+        )
+        assert gather([sched.submit(_spin(reg)) for _ in range(4)], 30) \
+            == [45] * 4
+    finally:
+        pool.close()
+
+
+@pytest.mark.fork
+def test_shm_segments_unlinked_even_when_child_dies():
+    """The segment-leak contract: a child killed mid-run must not leave
+    its fabric's segments in /dev/shm after ClusterPool.close()."""
+    reg = _default_registry_ready()
+    pool = ClusterPool.shm(2, registry=reg)
+    prefix = pool.fabric.prefix
+    pool.ping_all()
+    assert any(f.startswith(prefix) for f in os.listdir("/dev/shm"))
+    pool.kill(1)
+    time.sleep(0.3)
+    pool.close()
+    assert not any(f.startswith(prefix) for f in os.listdir("/dev/shm"))
+    # close() reaped the children too
+    for handle in pool._workers.values():
+        assert not handle.alive()
+
+
+def _demo_add(reg):
+    return f2f("demo/add", np.arange(4.0), np.full(4, 2.0), registry=reg)
+
+
+def _start(entry, reg):
+    """Start one worker through ``entry``; returns (domain, node, close)."""
+    from repro_torch.comm.shm import ShmFabric
+    from repro_torch.comm.socket import SocketFabric
     from repro_torch.offload import worker
+    from repro_torch.offload.api import OffloadDomain
 
-    return {
-        "pool_shm": lambda: ClusterPool.shm(2),
-        "pool_socket": lambda: ClusterPool.socket(2),
-        "spawn_shm_workers": lambda: worker.spawn_shm_workers(None, [1]),
-        "spawn_socket_worker_subprocess":
-            lambda: worker.spawn_socket_worker_subprocess(1, 2, 0),
-        "spawn_shm_worker_subprocess":
-            lambda: worker.spawn_shm_worker_subprocess(None, 1),
-    }
+    if entry in ("pool_shm", "pool_socket"):
+        make = ClusterPool.shm if entry == "pool_shm" else ClusterPool.socket
+        pool = make(1, registry=reg)
+        return pool.domain, 1, pool.close
+    if entry == "spawn_socket_worker_subprocess":
+        fab = SocketFabric(2)
+        procs = [worker.spawn_socket_worker_subprocess(1, 2, fab.base_port)]
+    else:
+        fab = ShmFabric(2, capacity=1 << 20)
+        procs = (worker.spawn_shm_workers(fab, [1]) if entry == "spawn_shm_workers"
+                 else [worker.spawn_shm_worker_subprocess(fab, 1)])
+    dom = OffloadDomain(fab, registry=reg)
+
+    def close():
+        try:
+            dom.shutdown()
+            worker.reap(procs, timeout=5.0)
+        finally:
+            fab.close()
+
+    return dom, 1, close
 
 
-@pytest.mark.parametrize("entry", ["pool_shm", "pool_socket", "spawn_shm_workers",
-                                   "spawn_socket_worker_subprocess",
-                                   "spawn_shm_worker_subprocess"])
-def test_process_modes_raise_naming_item_11b(entry):
-    """The port has no shm/socket fabric and no process worker yet: each
-    process entry point raises, naming the ROADMAP item, and none of them
-    falls back to thread workers."""
-    threads = threading.active_count()
-    with pytest.raises(NotImplementedError, match="11b"):
-        _process_entry_points()[entry]()
-    assert threading.active_count() == threads  # no pool was started
+@pytest.mark.parametrize("entry", [
+    pytest.param("pool_shm", marks=pytest.mark.fork),
+    pytest.param("pool_socket"),
+    pytest.param("spawn_shm_workers", marks=pytest.mark.fork),
+    pytest.param("spawn_socket_worker_subprocess"),
+    pytest.param("spawn_shm_worker_subprocess", marks=pytest.mark.shm),
+])
+def test_process_entry_points_start_and_answer(entry):
+    """Every process entry point starts a real worker process (forked, or a
+    fresh interpreter), which passes the digest ping, answers ``demo/add``
+    and is reaped: none falls back to thread workers."""
+    reg = _default_registry_ready()
+    dom, node, close = _start(entry, reg)
+    try:
+        assert node not in dom._inproc  # a process, not a thread worker
+        digest = dom.sync(node, f2f("_cluster/digest", registry=reg), 60.0)
+        verify_peer_digest(reg.table, bytes.fromhex(digest))
+        np.testing.assert_array_equal(dom.sync(node, _demo_add(reg), 30.0),
+                                      np.arange(4.0) + 2.0)
+    finally:
+        close()
 
 
 # -- misc --------------------------------------------------------------------

@@ -114,14 +114,15 @@ def test_cluster_engine_defaults_to_cuda(monkeypatch, models):
 
 
 def test_replica_on_a_process_worker_raises_naming_item_11b(models):
-    """A worker with no in-process runtime would be a process worker, which
-    the port does not have yet: adding a replica there raises, naming the
-    ROADMAP item, instead of leaving the worker without a replica."""
+    """A worker with no in-process runtime is a process worker: serving
+    replicas run on thread workers only, as in the reference, and adding a
+    replica there raises instead of leaving the worker without one (the
+    reference returns silently)."""
     _, _, model, params = models
     eng = ClusterServingEngine(model, params, num_workers=1, slots_per_worker=1,
                                max_len=MAX_LEN, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match="thread workers only"):
             eng._add_replica(max(eng.pool.worker_nodes) + 1)
         assert len(eng._engine_keys) == 1
     finally:

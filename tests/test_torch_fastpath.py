@@ -1,5 +1,5 @@
-"""The port's counterpart of tests/test_fastpath.py, on the local
-fabric (the shm case waits for ROADMAP item 11b).
+"""The port's counterpart of tests/test_fastpath.py, on the local fabric
+and, end to end, a fresh-interpreter worker over shm.
 
 Static-spec RPC fast path: compiled WirePlans, FLAG_STATIC wire format,
 small-call fusion (FLAG_FUSED), and wire compat with pre-plan peers."""
@@ -538,3 +538,41 @@ def test_scheduler_fusion_preserves_order_vs_unfusible():
     finally:
         sched.close()
         pool.close()
+
+
+# -- end to end over a real forked shm worker --------------------------------
+
+
+@pytest.mark.shm
+def test_static_and_fused_roundtrip_over_shm_subprocess():
+    """The full fast path against a REAL worker process over shared memory:
+    static round trip, fused batch, mixed static/dynamic stream — crossing
+    an actual address-space boundary, fresh interpreter (no fork inherit)."""
+    from repro_torch.comm.shm import ShmFabric
+    from repro_torch.core.registry import default_registry
+    from repro_torch.offload.api import OffloadDomain
+    from repro_torch.offload.demo_handlers import _ECHO_ARGS
+    from repro_torch.offload.worker import reap, spawn_shm_worker_subprocess
+
+    reg = default_registry()
+    if not reg.initialised:
+        reg.init()
+    fab = ShmFabric(2, capacity=1 << 20)
+    proc = spawn_shm_worker_subprocess(fab, 1)
+    dom = OffloadDomain(fab, registry=reg, inline_host=True)
+    try:
+        assert dom.ping(1, 3, timeout=30.0) == 3
+        call_s = f2f("demo/echo_small_static", *_ECHO_ARGS)
+        call_d = f2f("demo/echo_small_dyn", *_ECHO_ARGS)
+        assert dom.sync(1, call_s) == 9.0  # static args + static reply
+        assert dom.sync(1, call_d) == 9.0  # TLV both ways, same handler
+        # fused batch across the process boundary
+        futs = dom.host.send_fused(1, [call_s] * 20)
+        assert [dom.host._inline_wait(f, 30) for f in futs] == [9.0] * 20
+        # mixed stream
+        futs = [dom.host.send_async(1, call_s if i % 2 else call_d)
+                for i in range(20)]
+        assert [dom.host._inline_wait(f, 30) for f in futs] == [9.0] * 20
+    finally:
+        dom.shutdown()
+        reap([proc], timeout=5.0)

@@ -1,7 +1,9 @@
-"""The port's counterpart of tests/test_offload.py, on the local
-fabric (the shm case waits for ROADMAP item 11b).
+"""The port's counterpart of tests/test_offload.py, on the local fabric and,
+for the oversized-reply case, a fresh-interpreter worker over shm.
 
 HAM-Offload behaviour: the paper §2 surface end to end."""
+
+import time
 
 import numpy as np
 import pytest
@@ -153,6 +155,143 @@ def test_threadpool_policy_domain():
         assert d.sync(1, _f2f(reg, "t/double", 4)) == 8
     finally:
         d.shutdown()
+
+
+@pytest.mark.shm
+def test_oversized_reply_errors_instead_of_killing_worker():
+    """A reply that exceeds the transport frame limit must come back as a
+    RemoteExecutionError — not silently kill the worker's event loop and
+    strand the caller in a timeout.
+
+    The worker is a *fresh interpreter* attached over shm, not a fork: by
+    the time this test runs, earlier tests have imported torch and started
+    its threads, and ``os.fork()`` in a multithreaded process risks exactly
+    that deadlock — spawning avoids the hazard instead of suppressing the
+    warning."""
+    from repro_torch.comm.shm import ShmFabric
+    from repro_torch.core.registry import default_registry
+    from repro_torch.offload.worker import reap, spawn_shm_worker_subprocess
+
+    # subprocess workers re-init the default registry, so the host must use
+    # it too (same-source assumption): internal _ham handlers are enough here
+    reg = default_registry()
+    if not reg.initialised:
+        reg.init()
+    fab = ShmFabric(2, capacity=1 << 20)  # 1 MB rings
+    proc = spawn_shm_worker_subprocess(fab, 1)
+    dom = OffloadDomain(fab, registry=reg)
+    try:
+        assert dom.ping(1, 3, timeout=30.0) == 3
+        n = (1 << 21) // 8  # 2 MB buffer
+        ptr = dom.allocate(1, (n,), "float64")
+        dom.put(np.ones(n), ptr)  # put auto-chunks to the ring size
+        with pytest.raises(ham.RemoteExecutionError, match="capacity"):
+            dom.get(ptr)  # unchunked 2 MB reply cannot fit a 1 MB ring
+        # the worker survived and still serves requests
+        assert dom.ping(1, 7, timeout=10.0) == 7
+        got = dom.get(ptr, count=n, chunk_count=(1 << 19) // 8)
+        assert got.size == n and got[0] == 1.0
+        dom.free(ptr)
+    finally:
+        dom.shutdown()
+        reap([proc], timeout=5.0)
+
+@pytest.mark.shm
+def test_fresh_interpreter_shm_worker_killed_respawned_answers():
+    """Kill a fresh-interpreter shm worker, respawn it under the same node
+    id and call it again.  Before Python 3.13 an interpreter that attaches
+    a segment registers it with its own resource tracker, which unlinks it
+    when that interpreter dies: the reference's worker takes the host's
+    live rings with it and the respawn finds nothing to attach.  The port's
+    worker leaves segment lifetime to the fabric owner."""
+    import os
+
+    from repro_torch.comm.shm import ShmFabric
+    from repro_torch.core.registry import default_registry
+    from repro_torch.offload.worker import reap, spawn_shm_worker_subprocess
+
+    reg = default_registry()
+    if not reg.initialised:
+        reg.init()
+    fab = ShmFabric(2, capacity=1 << 20)
+    segments = sorted(f for f in os.listdir("/dev/shm") if f.startswith(fab.prefix))
+    procs = [spawn_shm_worker_subprocess(fab, 1)]
+    dom = OffloadDomain(fab, registry=reg)
+    try:
+        assert dom.ping(1, 3, timeout=30.0) == 3
+        procs[0].kill()
+        procs[0].wait(10.0)
+        time.sleep(0.5)  # the dead interpreter's resource tracker has exited
+        assert sorted(f for f in os.listdir("/dev/shm")
+                      if f.startswith(fab.prefix)) == segments
+        fab.prepare_restart(1)
+        dom.host.endpoint.reset_peer(1)
+        procs.append(spawn_shm_worker_subprocess(fab, 1))
+        assert dom.ping(1, 4, timeout=30.0) == 4
+        ptr = dom.allocate(1, (1024,), "float64")
+        dom.put(np.arange(1024.0), ptr)
+        np.testing.assert_array_equal(dom.get(ptr), np.arange(1024.0))
+    finally:
+        dom.shutdown()
+        reap(procs, timeout=5.0)
+        fab.close()
+    assert not any(f.startswith(fab.prefix) for f in os.listdir("/dev/shm"))
+
+
+@pytest.mark.shm
+def test_fresh_shm_worker_untracks_only_the_fabric_segments():
+    """A fresh-interpreter shm worker leaves the fabric's own segments
+    (``{prefix}_...``) to the fabric owner, but any other shared memory it
+    creates, as a handler module might, stays with its resource tracker,
+    which unlinks it when the interpreter exits without doing so."""
+    import os
+    import subprocess
+    import sys
+    import uuid
+
+    import repro_torch
+
+    stem = f"test_torch_tracker_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    owned, other = f"{stem}_0_1", f"{stem}x_other"
+    code = (
+        "from multiprocessing import shared_memory\n"
+        "from repro_torch.offload.worker import _leave_segments_to_the_fabric\n"
+        f"_leave_segments_to_the_fabric({stem!r})\n"
+        f"for name in ({owned!r}, {other!r}):\n"
+        "    shared_memory.SharedMemory(name, create=True, size=64).close()\n"
+    )
+    src = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    try:
+        subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                       capture_output=True, timeout=60)
+        deadline = time.monotonic() + 10.0  # the tracker outlives its interpreter briefly
+        while os.path.exists(f"/dev/shm/{other}") and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not os.path.exists(f"/dev/shm/{other}"), "a handler's segment went untracked"
+        assert os.path.exists(f"/dev/shm/{owned}"), "the tracker unlinked a fabric segment"
+    finally:
+        for name in (owned, other):
+            if os.path.exists(f"/dev/shm/{name}"):
+                os.unlink(f"/dev/shm/{name}")
+
+
+def test_put_and_call_take_cpu_tensors(dom):
+    """A ``torch.Tensor`` goes wherever the reference takes a ``jax.Array``:
+    as a call argument and as the source of a put (its host copy; a CUDA
+    tensor is staged through pinned memory, which the chip check drives)."""
+    import torch
+
+    dom.direct_data_plane = False  # the wire path, as a process worker sees it
+    t = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    ptr = dom.allocate(1, (8, 8), "float32")
+    dom.put(t, ptr)
+    np.testing.assert_array_equal(dom.get(ptr), t.numpy())
+    assert dom.sync(1, _f2f(dom.registry, "t/double", t)).tolist() == (t * 2).tolist()
+    dom.direct_data_plane = True
+    dom.put(t + 1, ptr)
+    np.testing.assert_array_equal(dom.get(ptr), t.numpy() + 1)
+
 
 
 def test_buffer_registry_rules():

@@ -1,14 +1,15 @@
 """The port's counterpart of tests/test_serve_stream.py, on the CPU.
 
 Worker-driven streaming serve: protocol-level tests (docs/serving.md).
-The kill-mid-decode replay case is not ported yet (ROADMAP item 11b): its
-kill lands after 12 streamed tokens, and on this model the victim has often
-finished its requests by then and nothing replays (6 failures in 20 runs).
 
 Covers the delivery/ordering contract of the ``_serve/stream*`` path, the
 fused multi-step decode block, mode equivalence (worker-driven transcripts
 token-identical to the lockstep drive), elasticity under join/leave, and
-the failure-model legs: cancel and deadlines.
+the failure-model legs: kill-mid-decode replay, cancel, and deadlines.
+The kill-mid-decode case kills the worker inside a decode block, once a
+request placed on it has streamed tokens and still has budget left, so the
+kill always lands mid-decode (the reference kills after 12 streamed tokens,
+by which time the victim may have finished and nothing replays).
 """
 
 import time
@@ -141,6 +142,58 @@ def test_join_leave_mid_batch_token_identical(model_and_params):
         _reqs(cfg, 2, max_new=8))
     assert got_late == ref_late
 
+
+def test_kill_mid_decode_replays_without_dup_or_loss(model_and_params):
+    """Kill a worker while its loop is streaming: every request replays on
+    the survivor and the final transcripts are exactly the reference — no
+    duplicated, lost, or reordered tokens (seq_ok holds through the repin
+    because the continuation admit offsets the stream's seq base).
+
+    The kill is certain to land mid-decode: it fires inside the victim's
+    next decode block once a request there has streamed tokens and still
+    has budget left.  A thread worker's kill stops only its event loop, so
+    the decode loop is stopped with it, as a crashed process loses both;
+    the block is never computed and that request must replay."""
+    from repro_torch.serve.handlers import _NODE_ENGINES, _NODE_LOOPS
+
+    model, params = model_and_params
+    cfg = model.cfg
+    eng = ClusterServingEngine(model, params, device="cpu", num_workers=2,
+                               slots_per_worker=2, max_len=64)
+    killed = {}
+    victim = eng.serving_nodes()[0]
+    rt = eng.pool.domain._inproc[victim]
+    replica, loop = _NODE_ENGINES[id(rt)], _NODE_LOOPS[id(rt)]
+    step_many = replica.step_many
+
+    def crash_mid_decode(k):
+        live = [(rid, lv) for rid, lv in loop._live.items()
+                if lv["seq"] >= 2 and lv["remaining"] > 0]
+        if killed or not live:
+            return step_many(k)
+        eng.pool.kill(victim)
+        loop.stop(join=False)
+        rid, lv = live[0]
+        killed.update(node=victim, rid=rid, streamed=lv["seq"])
+        return []  # the crash takes this block with it
+
+    replica.step_many = crash_mid_decode
+    try:
+        rids = [eng.submit_request(r, shed=False)
+                for r in _reqs(cfg, 6, max_new=24)]
+        eng.wait(rids, timeout=180.0)
+        with eng._wd:
+            got = {r: list(eng._transcripts[r]) for r in rids}
+            events = {r: dict(eng._events[r]) for r in rids}
+    finally:
+        eng.close()
+    assert "node" in killed, "the kill must land mid-run"
+    ref = ServingEngine(model, params, device="cpu", num_slots=2, max_len=64).run(
+        _reqs(cfg, 6, max_new=24))
+    assert got == ref  # exact: no duplicated and no lost tokens
+    assert any(ev.get("repins", 0) > 0 for ev in events.values())
+    assert events[killed["rid"]].get("repins", 0) > 0  # the victim's request replayed
+    assert all(ev.get("seq_ok", True) for ev in events.values())
 
 # -- failure model: cancel + deadline --------------------------------------
 
