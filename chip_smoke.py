@@ -18,7 +18,15 @@ Phases, in order; any failure raises and exits non-zero:
    one-call PyTorch yardstick (``scaled_dot_product_attention``,
    ``torch.bmm``; none computes mLSTM or SSD); each grouped-matmul, mLSTM
    and SSD line names the route it took, and the mLSTM and SSD kernels are
-   also timed by pass and beside the CUDA-core route they replaced;
+   also timed by pass and beside the CUDA-core route they replaced; the
+   two variants the attention kernels gained with the zoo's remaining
+   paths are held and timed too: flash with a causal sliding window at
+   zamba2's shape (S 1024 / W 256, S 8192 / W 4096, each beside the causal
+   call, which the window must undercut by 10% at S 8192) and decode over
+   an int8 cache with float32 scales (internlm2-20b's shape, ragged and
+   whole, beside the bf16 kernel and SDPA on the dequantized cache), with
+   whisper-large-v3's encoder and cross-attention flash (Sq 448, Skv 1500)
+   and its cross-attention decode (1500 frames);
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
    width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
    zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
@@ -28,7 +36,12 @@ Phases, in order; any failure raises and exits non-zero:
    path on the CPU (MoE routing near-ties between the two are reported, not
    hidden; the recurrent states are compared too; the first mLSTM and
    Mamba2 layers' states are also held against the plain mLSTM and SSD on
-   the card, on the same activations);
+   the card, on the same activations); then zamba2-2.7b (2 groups) with a
+   256-token window over a 1024-token prompt and 8 decode steps across the
+   ring's wrap, whisper-large-v3 at 2 + 2 layers (prefill over 1500 stub
+   frames, both caches, 8 decode steps), internvl2-76b at 2 layers (256
+   patches + 8 tokens, 4 decode steps) and internlm2-20b with the int8 cache
+   (2 layers, 12 steps from position 0), float32, card against CPU;
 5. serve internlm2-20b, olmoe-1b-7b, xlstm-1.3b and zamba2-2.7b, each at its
    full published config in bfloat16 (seeded random weights): 16 greedy requests
    through ``run()``, a profiled window of decode steps, a ``step_many(16)``
@@ -36,6 +49,16 @@ Phases, in order; any failure raises and exits non-zero:
    of 1024-token admissions (one for xlstm-1.3b, whose sLSTM prefill is a
    host loop of ~150 k small launches), and one sampled request, with the
    kernels' launch counters zeroed before and checked after each model;
+   5b. the remaining attention paths at full config in bf16, each with its
+   counters zeroed before and checked after: zamba2-2.7b with the
+   long-context window 4096 served (8 slots, 16 requests of 3900–4000
+   tokens, 256 new tokens each, so every request wraps the ring;
+   ``step_many(16)`` against 16 ``step()`` calls with every lane crossing
+   the wrap), internlm2-20b (48 layers) decoded 64 steps over the int8
+   cache beside the bf16 cache (logits within 0.05 of its max), and
+   whisper-large-v3 (32 + 32 layers, 8 x 1500 frames, 64 greedy steps) and
+   internvl2-76b (full width, 2 of 80 layers; 256 patches, 32 greedy
+   steps) decoded;
 6. cluster serving through the port's HAM runtime: internlm2-20b at full
    config in bfloat16 through ``ClusterServingEngine`` (2 thread workers x 4
    slots, ``max_len`` 2048), worker-driven (decode blocks of 16), lockstep
@@ -57,8 +80,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``(a + b).cpu()`` and hold a CUDA tensor put into a buffer, and the shm
    worker answers again after a kill and a respawn; every worker not killed
    on purpose leaves on the shutdown message with exit code 0;
-8. print the kernel line, one serving line per model, the cluster serving
-   line and the process-fabrics line (JSON);
+8. print the kernel line, one serving line per model, the phase 5b line,
+   the cluster serving line and the process-fabrics line (JSON);
 9. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
@@ -181,6 +204,9 @@ SSD_CASES = [
     (1, 7, 8, 1, 256, False, False, "short prompt, one masked tile"),
 ]
 ZAMBA2_CHECK = (12, 2, 300)   # layers (2 groups of 6), batch, prompt: 256 + 44 on the card
+# internvl2-76b in phase 4: a float32 layer is 3.4 GB and the embedding and
+# head 4.2 GB each, on the card and again on the host
+VLM_CHECK_LAYERS = 2
 
 # how phase 3 names each grouped-matmul route (kernels/grouped_matmul.py `route`)
 GMM_ROUTES = {"wgmma": "TMA/wgmma", "stream": "TMA stream/mma.sync",
@@ -194,6 +220,17 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
+    },
+    # the two variants this repository's kernels added to the ported ones
+    "flash_attention_window": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:32",
+        "variant": "causal sliding window (the reference model's causal_mask(window=))",
+    },
+    "decode_attention_q8": {
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:32",
+        "variant": "int8 K/V with float32 per-vector scales (the reference's kv_quant cache)",
     },
     "grouped_matmul": {
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -213,6 +250,34 @@ KERNELS = {
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def _counter_modules():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm
+
+    # KERNELS name -> (module, counter); a variant's launches count in its
+    # kernel's `launches` too
+    return {"decode_attention": (dec, "launches"), "decode_attention_q8": (dec, "launches_q8"),
+            "flash_attention": (fla, "launches"),
+            "flash_attention_window": (fla, "launches_window"),
+            "grouped_matmul": (gmm, "launches"), "mlstm": (mlstm, "launches"),
+            "mamba2_ssd": (ssd, "launches")}
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counter to 0: a run starts."""
+    for module, counter in _counter_modules().values():
+        setattr(module, counter, 0)
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since :func:`zero_counts`, by KERNELS name."""
+    return {name: getattr(module, counter)
+            for name, (module, counter) in _counter_modules().items()}
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -319,21 +384,60 @@ def decode_case(torch, B, Hkv, qpk, S, d, dtype, lengths, seed):
     return (q, k, v, lens), got, want
 
 
-def flash_case(torch, B, H, Hkv, S, d, dtype, causal, seed):
+def q8_case(torch, B, Hkv, qpk, S, d, dtype, lengths, seed):
+    """The int8 decode on a cache quantized as the model quantizes it
+    (``layers._quantize_kv`` of N(0, 1) K/V), against its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_q8_plain
+    from repro_torch.models.layers import _quantize_kv
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(B, 1, Hkv * qpk, d, generator=g, device=DEVICE).to(getattr(torch, dtype))
+    (kq, ks), (vq, vs) = (_quantize_kv(torch.randn(B, S, Hkv, d, generator=g, device=DEVICE))
+                          for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    got = ops.decode_attention_q8_bhsd(q, kq, vq, ks, vs, lens)
+    t = lambda a: a.transpose(1, 2)
+    want = decode_attention_q8_plain(q.reshape(B, Hkv, qpk, d), t(kq), t(vq), t(ks), t(vs),
+                                     lens).reshape(B, 1, Hkv * qpk, d)
+    torch.cuda.synchronize()
+    return (q, kq, vq, ks, vs, lens), got, want
+
+
+def flash_case(torch, B, H, Hkv, S, d, dtype, causal, seed, window=None, Skv=None):
+    """Flash on model-layout q (B, S, H, d) and k/v (B, Skv, Hkv, d) against
+    its plain version; ``Skv`` != S is cross attention (non-causal)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_heads_plain
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, dtype)
+    Skv = S if Skv is None else Skv
     q = torch.randn(B, S, H, d, generator=g, device=DEVICE).to(dt)     # model layout
-    k = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)
-    v = torch.randn(B, S, Hkv, d, generator=g, device=DEVICE).to(dt)
-    got = ops.flash_attention_bhsd(q, k, v, causal=causal)
+    k = torch.randn(B, Skv, Hkv, d, generator=g, device=DEVICE).to(dt)
+    v = torch.randn(B, Skv, Hkv, d, generator=g, device=DEVICE).to(dt)
+    got = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
     want = flash_attention_heads_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
     ).transpose(1, 2)
     torch.cuda.synchronize()
     return (q, k, v), got, want
+
+
+def rotating(fn, items):
+    """A call of ``fn`` on the next of ``items`` each time (cycling)."""
+    state = {"i": 0}
+
+    def call():
+        fn(items[state["i"] % len(items)])
+        state["i"] += 1
+    return call
+
+
+def window_pairs(S: int, window: int | None) -> int:
+    """(query, key) pairs a causal head attends: sum_i min(i + 1, window)."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
 
 
 def gmm_case(torch, E, C, d, f, dtype, seed, view=""):
@@ -487,12 +591,31 @@ def check_kernels(torch) -> dict:
     # lengths over its range (prompt 64..448 + 64 new tokens) and beyond
     decode_cases += [(4, 8, 6, 2048, 128, dt, lens) for dt in ("bfloat16", "float32")
                      for lens in ([1, 64, 449, 512], [513, 2047, 2048, 5000])]
+    # whisper-large-v3's decoder: self and cross (1500 frames, no multiple
+    # of a tile) attention at d 64, qpk 1
+    whisper_lengths = [1, 4, 63, 64, 65, 700, 1499, 1500]
+    decode_cases += [(8, 20, 1, 1500, 64, dt, whisper_lengths) for dt in ("bfloat16", "float32")]
     for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(decode_cases):
         _, got, want = decode_case(torch, B, Hkv, qpk, S, d, dt, lens, seed=i)
         err = max_err(torch, got, want)
         print(f"decode_attention B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt} "
               f"lengths={lens} splits={dec.num_splits(B * Hkv)}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"decode_attention disagrees with its plain version: {err}")
+    # the int8 variant: internlm2-20b's shape with ragged lengths, whisper's,
+    # d 80 and 32, the largest group (qpk 16) and each cluster size
+    q8_cases = [(8, 8, 6, 2048, 128, dt, full_lengths) for dt in ("bfloat16", "float32")] + [
+        (8, 20, 1, 1500, 64, dt, whisper_lengths) for dt in ("bfloat16", "float32")] + [
+        (3, 2, 4, 300, 80, "bfloat16", [1, 150, 300]), (2, 1, 8, 100, 32, "float32", [37, 100]),
+        (4, 2, 16, 96, 64, "bfloat16", [96, 5, 33, 1])]
+    for splits in dec.SPLITS:
+        Hkv = max(1, dec.TARGET_BLOCKS // splits // 4)
+        q8_cases.append((4, Hkv, 4, 1024, 128, "bfloat16", [1, 37, 1024 // splits - 1, 5000]))
+    for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(q8_cases):
+        _, got, want = q8_case(torch, B, Hkv, qpk, S, d, dt, lens, seed=50 + i)
+        err = max_err(torch, got, want)
+        print(f"decode_attention_q8 B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt} int8 K/V "
+              f"lengths={lens} splits={dec.num_splits(B * Hkv)}: max_abs_err={err:.3g}")
+        check(err <= TOL[dt], f"decode_attention_q8 disagrees with its plain version: {err}")
 
     flash_cases = [
         (2, 48, 8, S, 128, dt, True) for S in (512, 1024) for dt in ("bfloat16", "float32")
@@ -518,6 +641,28 @@ def check_kernels(torch) -> dict:
         print(f"flash_attention B={B} H={H} Hkv={Hkv} S={S} d={d} {dt} "
               f"causal={causal}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"flash_attention disagrees with its plain version: {err}")
+    # the window variant (zamba2's shape at both timed sizes; windows whose
+    # edge falls inside a key tile, of 1 key, or wider than S) and whisper's
+    # non-causal encoder and cross attention (Sq != Skv = 1500, d 64)
+    window_cases = [(1, 32, 32, 1024, 256, 80, dt) for dt in ("bfloat16", "float32")] + [
+        (1, 32, 32, 8192, 4096, 80, "bfloat16"), (1, 32, 32, 333, 100, 80, "float32"),
+        (2, 8, 2, 257, 65, 64, "bfloat16"), (1, 48, 8, 300, 7, 128, "bfloat16"),
+        (1, 4, 4, 200, 1, 32, "bfloat16"), (2, 8, 2, 130, 500, 64, "float32")]
+    for i, (B, H, Hkv, S, W, d, dt) in enumerate(window_cases):
+        _, got, want = flash_case(torch, B, H, Hkv, S, d, dt, True, seed=150 + i, window=W)
+        err = max_err(torch, got, want)
+        print(f"flash_attention_window B={B} H={H} Hkv={Hkv} S={S} window={W} d={d} {dt}: "
+              f"max_abs_err={err:.3g}")
+        check(err <= TOL[dt], f"flash_attention_window disagrees with its plain version: {err}")
+    cross_cases = [(1, 20, 20, 448, 1500, dt) for dt in ("bfloat16", "float32")] + [
+        (8, 20, 20, 4, 1500, "bfloat16"), (8, 20, 20, 1500, 1500, "bfloat16")]
+    for i, (B, H, Hkv, S, Skv, dt) in enumerate(cross_cases):
+        _, got, want = flash_case(torch, B, H, Hkv, S, 64, dt, False, seed=170 + i, Skv=Skv)
+        err = max_err(torch, got, want)
+        print(f"flash_attention B={B} H={H} Hkv={Hkv} Sq={S} Skv={Skv} d=64 {dt} "
+              f"non-causal: max_abs_err={err:.3g}")
+        check(err <= TOL[dt], f"flash_attention (Sq != Skv) disagrees with its plain version: "
+                              f"{err}")
 
     for i, (E, C, d, f, view, what) in enumerate(GMM_CASES):
         for dt in ("bfloat16", "float32"):
@@ -607,6 +752,139 @@ def check_kernels(torch) -> dict:
             library="sdpa",
         )
         records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
+
+    # the window variant at zamba2's shape, S 8192 with W 4096 (the
+    # long-context cell's window) and S 1024 with W 256, each beside the
+    # causal call at the same shape: a kernel that skips the tiles left of
+    # the window does sum_i min(i + 1, W) / sum_i (i + 1) of the causal
+    # work (0.75 at S 8192), one that only masked them would take >= 1x
+    for key, (S, W) in (("flash_attention_window", (8192, 4096)),
+                        ("flash_attention_window_s1024", (1024, 256))):
+        B, H, Hkv, d = 1, 32, 32, 80
+        (q, k, v), got, want = flash_case(torch, B, H, Hkv, S, d, "bfloat16", True, seed=13,
+                                          window=W)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * B * H * d * window_pairs(S, W)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril().triu(1 - W)
+        # windowed and causal in turns (causal, window, window, causal), the
+        # better of each pair, so that a clock change between them cannot
+        # pass for the skipped tiles
+        windowed = lambda: ops.flash_attention_bhsd(q, k, v, causal=True, window=W)
+        causal = lambda: ops.flash_attention_bhsd(q, k, v, causal=True)
+        reps = 20
+        turns = [time_ms(torch, fn, reps) for fn in (causal, windowed, windowed, causal)]
+        rec = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=min(turns[1:3]),
+            plain_ms=time_ms(torch, lambda: flash_attention_heads_plain(
+                qh, kh, vh, causal=True, window=W), 3 if S > 4096 else 10),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True), reps),
+            causal_ms=min(turns[0], turns[3]),
+            turns_ms=turns,
+            shape=f"B={B} H={H} Hkv={Hkv} S={S} window={W} d={d} bfloat16",
+            library="sdpa (boolean window mask)",
+        )
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, "bfloat16")
+        rec["causal_bound_ms"] = bound(nbytes, 4 * B * H * d * window_pairs(S, None),
+                                       "bfloat16")[0]
+        rec["window_over_causal"] = rec["ms"] / rec["causal_ms"]
+        records[key] = rec
+        print(f"{key}: windowed {rec['ms']:.4f} ms, causal {rec['causal_ms']:.4f} ms "
+              f"(turns causal, window, window, causal: {[f'{t:.4f}' for t in turns]})")
+        del q, k, v, got, want, qh, kh, vh, mask
+        release(torch)
+    check(records["flash_attention_window"]["window_over_causal"] < 0.9,
+          f"windowed flash at S 8192 / W 4096 takes "
+          f"{records['flash_attention_window']['window_over_causal']:.3f}x the causal call: "
+          f"the tiles left of the window are not skipped")
+
+    # whisper-large-v3's flash calls: the encoder (8 x 1500 frames) and the
+    # decoder's cross attention of a 448-token prefill over 1500 frames,
+    # both non-causal at d 64
+    for key, (B, S, Skv) in (("flash_attention_whisper_encoder", (8, 1500, 1500)),
+                             ("flash_attention_whisper_cross", (1, 448, 1500))):
+        (q, k, v), got, want = flash_case(torch, B, 20, 20, S, 64, "bfloat16", False, seed=14,
+                                          Skv=Skv)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: ops.flash_attention_bhsd(q, k, v, causal=False), 20),
+            plain_ms=time_ms(torch, lambda: flash_attention_heads_plain(qh, kh, vh,
+                                                                        causal=False), 5),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh), 20),
+            shape=f"B={B} H=20 Hkv=20 Sq={S} Skv={Skv} d=64 bfloat16 non-causal",
+            library="sdpa",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(
+            2 * (2 * q.numel() + k.numel() + v.numel()), 4 * B * 20 * 64 * S * Skv, "bfloat16")
+
+    # decode at whisper-large-v3's cross attention: 8 sequences, 20 kv heads
+    # of d 64, qpk 1, every one of the 1500 frames attended
+    B, Hkv, qpk, S, d = 8, 20, 1, 1500, 64
+    (q, k, v, lens), got, want = decode_case(torch, B, Hkv, qpk, S, d, "bfloat16", [S] * B,
+                                             seed=15)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    records["decode_attention_whisper"] = dict(
+        max_abs_err=max_err(torch, got, want),
+        ms=time_ms(torch, lambda: ops.decode_attention_bhsd(q, k, v, lens), 50),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(
+            q.reshape(B, Hkv, qpk, d), kt, vt, lens), 20),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kt, vt), 50),
+        shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}, "
+              f"splits={dec.num_splits(B * Hkv)}",
+        library="sdpa",
+    )
+    records["decode_attention_whisper"]["bound_ms"], \
+        records["decode_attention_whisper"]["bound_by"] = bound(
+            2 * q.numel() * 2 + 2 * B * S * Hkv * d * 2 + B * 4, 4 * B * S * Hkv * qpk * d,
+            "bfloat16")
+
+    # the int8 variant at internlm2-20b's serving shape: ragged lengths (the
+    # run's bound counts the keys they make valid), and the whole cache
+    # valid, each beside the bf16 kernel on the dequantized cache and SDPA
+    # over it (a yardstick: SDPA reads the dequantized bf16 cache).  The
+    # int8 cache (34 MB) fits the 50 MB L2, so kernel and bf16 kernel each
+    # cycle through 4 copies of their cache, as a decode step's layers do:
+    # every call finds its cache cold
+    from repro_torch.kernels.decode_attention import decode_attention_q8_plain
+    from repro_torch.kernels.ref import dequantize_kv
+
+    B, Hkv, qpk, S, d = 8, 8, 6, 2048, 128
+    for key, lengths in (("decode_attention_q8", full_lengths),
+                         ("decode_attention_q8_full", [S] * B)):
+        (q, kq, vq, ks, vs, lens), got, want = q8_case(torch, B, Hkv, qpk, S, d, "bfloat16",
+                                                       lengths, seed=16)
+        kd, vd = dequantize_kv(kq, ks, q.dtype), dequantize_kv(vq, vs, q.dtype)
+        t = lambda a: a.transpose(1, 2)
+        valid = int(lens.clamp(max=S).sum())
+        nbytes = 2 * q.numel() * 2 + 2 * valid * Hkv * (d + 4) + B * 4
+        mask = (torch.arange(S, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
+        q8s = [(kq, vq, ks, vs)] + [tuple(x.clone() for x in (kq, vq, ks, vs)) for _ in range(3)]
+        bf16s = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(3)]
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, rotating(lambda c: ops.decode_attention_q8_bhsd(q, *c, lens), q8s),
+                       48),
+            plain_ms=time_ms(torch, lambda: decode_attention_q8_plain(
+                q.reshape(B, Hkv, qpk, d), t(kq), t(vq), t(ks), t(vs), lens), 20),
+            library_ms=time_ms(torch, rotating(lambda c: F.scaled_dot_product_attention(
+                q.transpose(1, 2), t(c[0]), t(c[1]), attn_mask=mask, enable_gqa=True), bf16s),
+                48),
+            bf16_ms=time_ms(torch, rotating(lambda c: ops.decode_attention_bhsd(q, *c, lens),
+                                            bf16s), 48),
+            caches_cycled=len(q8s),
+            shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16 q, int8 K/V, "
+                  f"lengths={lengths}, splits={dec.num_splits(B * Hkv)}",
+            library="sdpa over the dequantized bf16 cache",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(
+            nbytes, 4 * valid * Hkv * qpk * d, "bfloat16")
+        records[key]["bf16_bound_ms"] = bound(
+            2 * q.numel() * 2 + 2 * valid * Hkv * d * 2 + B * 4, 4 * valid * Hkv * qpk * d,
+            "bfloat16")[0]
 
     # grouped matmul at GMM_TIMED's shapes; a call streams 134-268 MB of
     # weights, more than the 50 MB L2, so every call finds w cold
@@ -715,6 +993,14 @@ def check_kernels(torch) -> dict:
         if "passes_ms" in rec:
             print(f"{name} device ms per call by pass: " + ", ".join(
                 f"{p}: {ms:.4f}" for p, ms in rec["passes_ms"].items()))
+        if "causal_ms" in rec:
+            print(f"{name} causal call at the same shape {rec['causal_ms']:.4f} ms (bound "
+                  f"{rec['causal_bound_ms']:.4f}): windowed / causal "
+                  f"{rec['window_over_causal']:.3f}")
+        if "bf16_ms" in rec:
+            print(f"{name} bf16 kernel on the dequantized cache {rec['bf16_ms']:.4f} ms "
+                  f"(bound {rec['bf16_bound_ms']:.4f}); kernel, bf16 kernel and sdpa each "
+                  f"cycled through {rec['caches_cycled']} copies of their cache")
         if "previous" in rec:
             prev = rec["previous"]
             print(f"{name} previous route {prev['route']}: {prev['ms']:.4f} ms"
@@ -1107,16 +1393,271 @@ def check_zamba2_bf16(torch) -> None:
                 f"plain SSD's on the card by {err_h}")
 
 
+def card_and_cpu(torch, cfg):
+    """The card's and the CPU's model of ``cfg`` on the same seeded params
+    (drawn on the card, copied to the host), full float32 products on both
+    sides."""
+    from repro_torch.models.api import build_model, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg, device="cpu")
+    p_gpu = gpu.init(seed=0)
+    return gpu, p_gpu, cpu, tree_map(lambda t: t.cpu(), p_gpu)
+
+
+def tree_errs(torch, card, cpu_tree) -> dict:
+    """max |card - CPU| of every leaf of two cache trees, by leaf path."""
+    out = {}
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (tuple, list)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}/{i}")
+        else:
+            out[path] = max_err(torch, a.cpu(), b)
+
+    walk(card, cpu_tree, "")
+    return out
+
+
+def check_zamba2_window(torch) -> None:
+    """Phase 4 for zamba2-2.7b's windowed shared block: full width cut to 2
+    groups, float32, window 256 over a 1024-token prompt (forward logits
+    and caches, the windowed flash kernel on the card), then the ring built
+    from the prompt's last 256 positions (slot p % 256 holds position p)
+    and 8 per-slot decode steps that wrap it, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+
+    layers, B, T, W = ZAMBA2_CHECK[0], 2, 1024, 256
+    base = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(base, num_layers=layers, param_dtype="float32", dtype="float32",
+                              ssm=dataclasses.replace(base.ssm, attn_window=W))
+    apps = layers // cfg.ssm.attn_every
+    gpu, p_gpu, cpu, p_cpu = card_and_cpu(torch, cfg)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
+    before = fla.launches_window
+    lg, cg = gpu.prefill(p_gpu, {"tokens": tokens.to(DEVICE)})
+    check(fla.launches_window - before == apps,
+          f"windowed zamba2 prefill launched windowed flash {fla.launches_window - before} times")
+    lc, cc = cpu.prefill(p_cpu, {"tokens": tokens})
+    errs = [max_err(torch, lg.cpu(), lc)]
+    leaves = {}
+
+    def leaf_errs(card, cpu_tree, tag):
+        # h within the SSD state tolerance, conv and k/v within LOGIT_ATOL
+        for name, a, b in (("h", card["mamba"][0], cpu_tree["mamba"][0]),
+                           ("conv", card["mamba"][1], cpu_tree["mamba"][1]),
+                           ("k", card["attn_kv"]["k"], cpu_tree["attn_kv"]["k"]),
+                           ("v", card["attn_kv"]["v"], cpu_tree["attn_kv"]["v"])):
+            tol = SSD_TOL["state"]["float32"] if name == "h" else (LOGIT_ATOL, 0.0)
+            leaves[f"{tag} {name}"] = within(torch, a.cpu(), b, tol)
+
+    leaf_errs(cg, cc, "prefill")
+    caches = []
+    for model, part in ((gpu, cg), (cpu, cc)):
+        cache = model.init_cache(B, 2 * T)
+        check(cache["attn_kv"]["k"].shape[2] == W, "the ring is not window-sized")
+        for i in range(2):
+            cache["mamba"][i].copy_(part["mamba"][i])
+        for n in ("k", "v"):   # positions T - W .. T - 1 sit in slots 0 .. W - 1
+            cache["attn_kv"][n].copy_(part["attn_kv"][n][:, :, T - W:])
+        caches.append(cache)
+    pos = np.array([T, T])
+    for _ in range(8):
+        step = rng.integers(0, cfg.vocab_size, (B, 1))
+        before = dec.launches
+        lg, _ = gpu.decode_step(p_gpu, caches[0], {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                   "pos": torch.from_numpy(pos).to(DEVICE)})
+        check(dec.launches - before == apps,
+              f"windowed zamba2 decode launched decode_attention {dec.launches - before} times")
+        lc, _ = cpu.decode_step(p_cpu, caches[1], {"tokens": torch.from_numpy(step),
+                                                   "pos": torch.from_numpy(pos)})
+        errs.append(max_err(torch, lg.cpu(), lc))
+        pos = pos + 1
+    leaf_errs(caches[0], caches[1], "decode")
+    print(f"model check zamba2-2.7b windowed ({layers} Mamba2 blocks, window {W}, float32, "
+          f"prefill {B}x{T}, 8 decode steps across the ring's wrap): max |logits card - CPU| "
+          f"per call {[f'{e:.3g}' for e in errs]}, tolerance {LOGIT_ATOL}; cache leaves max "
+          f"|card - CPU| {({k: f'{e:.3g}' for k, (e, _) in leaves.items()})}, h within "
+          f"{SSD_TOL['state']['float32']}, conv/k/v within {LOGIT_ATOL}: "
+          f"{all(ok for _, ok in leaves.values())}")
+    check(max(errs) <= LOGIT_ATOL, f"windowed zamba2: card and CPU logits differ by {max(errs)}")
+    check(all(ok for _, ok in leaves.values()), f"windowed zamba2: caches differ {leaves}")
+
+
+def check_whisper(torch) -> None:
+    """Phase 4 for whisper-large-v3: full width at 2 encoder + 2 decoder
+    layers, float32, 2 sequences over 1500 stub frames (numpy seed 0) and a
+    4-token prompt: prefill logits and both caches, then 8 decode steps
+    (the cross cache read as a static cache), card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+
+    base = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(base, num_layers=2, param_dtype="float32", dtype="float32",
+                              encdec=dataclasses.replace(base.encdec, encoder_layers=2))
+    gpu, p_gpu, cpu, p_cpu = card_and_cpu(torch, cfg)
+    rng = np.random.default_rng(0)
+    B, T, F = 2, 4, cfg.encdec.encoder_frames
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))),
+             "frames": torch.from_numpy(rng.standard_normal((B, F, cfg.d_model), np.float32))}
+    before = fla.launches
+    lg, cg = gpu.prefill(p_gpu, {k: v.to(DEVICE) for k, v in batch.items()})
+    check(fla.launches - before == 3 * 2, f"whisper prefill launched flash "
+                                          f"{fla.launches - before} times, not 6")
+    lc, cc = cpu.prefill(p_cpu, batch)
+    errs = [max_err(torch, lg.cpu(), lc)]
+    leaves = tree_errs(torch, cg, cc)
+    caches = []
+    for model, part in ((gpu, cg), (cpu, cc)):
+        cache = model.init_cache(B, T + 8)
+        for n in ("k", "v"):
+            cache["self"][n][:, :, :T] = part["self"][n]
+        cache["cross"] = part["cross"]
+        caches.append(cache)
+    pos = np.array([T, T - 1])
+    for _ in range(8):
+        step = rng.integers(0, cfg.vocab_size, (B, 1))
+        before = dec.launches
+        lg, _ = gpu.decode_step(p_gpu, caches[0], {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                   "pos": torch.from_numpy(pos).to(DEVICE)})
+        check(dec.launches - before == 2 * 2, f"whisper decode launched decode_attention "
+                                              f"{dec.launches - before} times, not 4")
+        lc, _ = cpu.decode_step(p_cpu, caches[1], {"tokens": torch.from_numpy(step),
+                                                   "pos": torch.from_numpy(pos)})
+        errs.append(max_err(torch, lg.cpu(), lc))
+        pos = pos + 1
+    leaves.update({f"decode{k}": e for k, e in tree_errs(torch, caches[0], caches[1]).items()})
+    print(f"model check whisper-large-v3 (2 + 2 layers, float32, {B} x {F} frames, prefill "
+          f"{B}x{T} + 8 decode steps): max |logits card - CPU| per call "
+          f"{[f'{e:.3g}' for e in errs]}, tolerance {LOGIT_ATOL}; cache leaves "
+          f"{({k: f'{e:.3g}' for k, e in leaves.items()})}")
+    check(max(errs) <= LOGIT_ATOL, f"whisper: card and CPU logits differ by {max(errs)}")
+    check(max(leaves.values()) <= LOGIT_ATOL, f"whisper: caches differ {leaves}")
+
+
+def check_vlm(torch) -> None:
+    """Phase 4 for internvl2-76b: full width at VLM_CHECK_LAYERS layers (the
+    depth a float32 copy on each side allows), 2 sequences of 256 patch
+    embeddings (numpy seed 0) and 8 text tokens: prefill logits and caches,
+    then 4 per-slot decode steps after the prefix, card against CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("internvl2-76b"), num_layers=VLM_CHECK_LAYERS,
+                              param_dtype="float32", dtype="float32")
+    gpu, p_gpu, cpu, p_cpu = card_and_cpu(torch, cfg)
+    rng = np.random.default_rng(0)
+    B, T, P = 2, 8, cfg.vlm.num_patches
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))),
+             "patch_embeds": torch.from_numpy(rng.standard_normal((B, P, cfg.d_model),
+                                                                  np.float32))}
+    lg, cg = gpu.prefill(p_gpu, {k: v.to(DEVICE) for k, v in batch.items()})
+    lc, cc = cpu.prefill(p_cpu, batch)
+    check(lg.shape == (B, P + T, cfg.vocab_size), f"internvl2 prefill logits {lg.shape}")
+    errs = [max_err(torch, lg.cpu(), lc)]
+    leaves = tree_errs(torch, cg, cc)
+    caches = []
+    for model, part in ((gpu, cg), (cpu, cc)):
+        cache = model.init_cache(B, P + T + 4)
+        for n in ("k", "v"):
+            cache[n][:, :, :P + T] = part[n]
+        caches.append(cache)
+    pos = np.array([P + T, P + T - 3])
+    for _ in range(4):
+        step = rng.integers(0, cfg.vocab_size, (B, 1))
+        lg, _ = gpu.decode_step(p_gpu, caches[0], {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                   "pos": torch.from_numpy(pos).to(DEVICE)})
+        lc, _ = cpu.decode_step(p_cpu, caches[1], {"tokens": torch.from_numpy(step),
+                                                   "pos": torch.from_numpy(pos)})
+        errs.append(max_err(torch, lg.cpu(), lc))
+        pos = pos + 1
+    leaves.update({f"decode{k}": e for k, e in tree_errs(torch, caches[0], caches[1]).items()})
+    print(f"model check internvl2-76b ({cfg.num_layers} layers, float32, prefill {B} x ({P} "
+          f"patches + {T} tokens) + 4 decode steps): max |logits card - CPU| per call "
+          f"{[f'{e:.3g}' for e in errs]}, tolerance {LOGIT_ATOL}; cache leaves "
+          f"{({k: f'{e:.3g}' for k, e in leaves.items()})}")
+    check(max(errs) <= LOGIT_ATOL, f"internvl2: card and CPU logits differ by {max(errs)}")
+    check(max(leaves.values()) <= LOGIT_ATOL, f"internvl2: caches differ {leaves}")
+
+
+def check_kv_quant(torch) -> None:
+    """Phase 4 for the int8 cache: internlm2-20b with ``kv_quant`` at full
+    width cut to 2 layers, float32, 2 sequences decoded step by step from
+    position 0 for 12 steps (as ``tests/test_models.py:124-144`` drives the
+    reference), card against CPU: logits, the float32 scales, and the int8
+    values (a value may round to its neighbour where the two sides'
+    projections straddle a rounding edge; such values are counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+
+    cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=2, kv_quant=True,
+                              param_dtype="float32", dtype="float32")
+    gpu, p_gpu, cpu, p_cpu = card_and_cpu(torch, cfg)
+    rng = np.random.default_rng(0)
+    B, steps = 2, 12
+    caches = [gpu.init_cache(B, 16), cpu.init_cache(B, 16)]
+    errs = []
+    for t in range(steps):
+        step = rng.integers(0, cfg.vocab_size, (B, 1))
+        before = dec.launches_q8
+        lg, _ = gpu.decode_step(p_gpu, caches[0], {"tokens": torch.from_numpy(step).to(DEVICE),
+                                                   "pos": torch.tensor(t, device=DEVICE)})
+        check(dec.launches_q8 - before == 2, f"kv_quant decode launched the int8 kernel "
+                                             f"{dec.launches_q8 - before} times, not 2")
+        lc, _ = cpu.decode_step(p_cpu, caches[1], {"tokens": torch.from_numpy(step),
+                                                   "pos": torch.tensor(t)})
+        errs.append(max_err(torch, lg.cpu(), lc))
+    card = {n: c.cpu() for n, c in caches[0].items()}
+    int8_diff = {n: int((card[n].int() - caches[1][n].int()).abs().max()) for n in ("k", "v")}
+    int8_moved = sum(int((card[n] != caches[1][n]).sum()) for n in ("k", "v"))
+    scale_rel = max(((card[n] - caches[1][n]).abs() / caches[1][n].abs().clamp(min=1e-30))
+                    .max().item() for n in ("k_scale", "v_scale"))
+    print(f"model check internlm2-20b kv_quant (2 layers, float32, {B} sequences x {steps} "
+          f"steps from position 0): max |logits card - CPU| per call "
+          f"{[f'{e:.3g}' for e in errs]}, tolerance {LOGIT_ATOL}; int8 K/V max |diff| "
+          f"{int8_diff} ({int8_moved} of {2 * card['k'].numel()} values moved), scales max "
+          f"relative diff {scale_rel:.3g}")
+    check(max(errs) <= LOGIT_ATOL, f"kv_quant: card and CPU logits differ by {max(errs)}")
+    check(max(int8_diff.values()) <= 1 and scale_rel <= 1e-5,
+          f"kv_quant: caches differ: int8 {int8_diff}, scales {scale_rel}")
+
+
 # -- phase 5: serve the full configs -----------------------------------------
+
+
+def timed_engine(eng):
+    """Wrap ``eng.admit``/``eng.step`` to record TTFT (each admission ends on
+    its first token's host transfer) and the wall time of each step that
+    emitted tokens, with how many."""
+    ttft, step_s = [], []
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(req, slot):
+        t = time.perf_counter()
+        admit(req, slot)
+        ttft.append(time.perf_counter() - t)
+
+    def timed_step(key=None):
+        t = time.perf_counter()
+        out = step(key)
+        if out:
+            step_s.append((time.perf_counter() - t, len(out)))
+        return out
+
+    eng.admit, eng.step = timed_admit, timed_step
+    return ttft, step_s
 
 
 def serve(torch, arch: str) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fla
-    from repro_torch.kernels import grouped_matmul as gmm
-    from repro_torch.kernels import mamba2_ssd as ssd
-    from repro_torch.kernels import mlstm
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Request, ServingEngine
 
@@ -1133,29 +1674,14 @@ def serve(torch, arch: str) -> dict:
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     eng = ServingEngine(model, params, num_slots=8, max_len=2048)
     cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.payload["cache"]))
-    ttft, step_s = [], []
-    admit, step = eng.admit, eng.step
-
-    def timed_admit(req, slot):
-        t = time.perf_counter()
-        admit(req, slot)          # ends on the first token's host transfer
-        ttft.append(time.perf_counter() - t)
-
-    def timed_step(key=None):
-        t = time.perf_counter()
-        out = step(key)           # ends on the step's host transfer
-        if out:
-            step_s.append((time.perf_counter() - t, len(out)))
-        return out
-
-    eng.admit, eng.step = timed_admit, timed_step
+    ttft, step_s = timed_engine(eng)
     rng = np.random.default_rng(0)
     lengths = rng.integers(64, 1025, 16)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=64)
             for n in lengths]
 
     # this model's run starts here
-    dec.launches = fla.launches = gmm.launches = mlstm.launches = ssd.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = eng.run(reqs)
     torch.cuda.synchronize()
@@ -1201,9 +1727,7 @@ def serve(torch, arch: str) -> dict:
     check(len(sampled) == 8 and all(0 <= t < cfg.vocab_size for t in sampled),
           f"sampled request: {sampled}")
     torch.cuda.synchronize()
-    launches = {"decode_attention": dec.launches, "flash_attention": fla.launches,
-                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches,
-                "mamba2_ssd": ssd.launches}
+    launches = read_counts()
     admissions = 16 + len(block) + n_long + 1
     steps = eng.steps_dispatched
     # attention layers (zamba2: applications of the shared block)
@@ -1212,7 +1736,8 @@ def serve(torch, arch: str) -> dict:
     per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
     L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
     L_ssd = cfg.num_layers if hybrid else 0
-    expected = {"decode_attention": L_attn * steps, "flash_attention": L_attn * admissions,
+    expected = {"decode_attention": L_attn * steps, "decode_attention_q8": 0,
+                "flash_attention": L_attn * admissions, "flash_attention_window": 0,
                 "grouped_matmul": 3 * L_attn * (steps + admissions) if cfg.moe else 0,
                 "mlstm": L_mlstm * admissions, "mamba2_ssd": L_ssd * admissions}
     check(launches == expected,
@@ -1240,6 +1765,254 @@ def serve(torch, arch: str) -> dict:
         "profile_admission_1024": admit_profile,
     }
     print(f"served {cfg.name}: {n_params / 1e9:.2f} B params, {stats}")
+    return stats
+
+
+# -- phase 5b: the remaining attention paths at full config (bf16) ----------
+
+# zamba2-2.7b served with the long-context cell's window
+# (repro/launch/plans.py:61): 8 slots, 16 requests of 256 new tokens; every
+# prompt is long enough that its decode wraps the 4096-slot ring
+WINDOWED = {"window": 4096, "slots": 8, "requests": 16, "new_tokens": 256,
+            "prompt": (3900, 4000), "max_len": 4352}
+
+
+def serve_windowed(torch) -> dict:
+    """zamba2-2.7b at its full config in bf16 with attn_window 4096, served
+    through ServingEngine past the ring's wrap: exact launches (flash, all
+    windowed, 9 and SSD 54 per admission, decode 9 per step) and
+    ``step_many(16)`` equal to 16 ``step()`` calls, with lanes across the
+    wrap."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    W, n_req, new = WINDOWED["window"], WINDOWED["requests"], WINDOWED["new_tokens"]
+    base = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(base, param_dtype="bfloat16",
+                              ssm=dataclasses.replace(base.ssm, attn_window=W))
+    model = build_model(cfg)
+    params = model.init(seed=0)
+    eng = ServingEngine(model, params, num_slots=WINDOWED["slots"], max_len=WINDOWED["max_len"])
+    check(eng.payload["cache"]["attn_kv"]["k"].shape[2] == W, "the ring is not window-sized")
+    ttft, step_s = timed_engine(eng)
+    rng = np.random.default_rng(0)
+    lo, hi = WINDOWED["prompt"]
+    lengths = rng.integers(lo, hi + 1, n_req)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=new)
+            for n in lengths]
+    # the last position a request writes is prompt + new - 2
+    wrapped = int((lengths + new - 2 >= W).sum())
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = eng.steps_dispatched
+    check(sorted(out) == list(range(n_req)) and all(len(out[i]) == new for i in range(n_req)),
+          "windowed zamba2: run() served the wrong requests or token counts")
+    check(all(0 <= t < cfg.vocab_size for ts in out.values() for t in ts), "token out of vocab")
+    apps, L = cfg.num_layers // cfg.ssm.attn_every, cfg.num_layers
+    expected = dict.fromkeys(launches, 0)
+    expected.update(decode_attention=apps * steps, flash_attention=apps * n_req,
+                    flash_attention_window=apps * n_req, mamba2_ssd=L * n_req)
+    check(launches == expected, f"windowed zamba2 launches {launches} != {expected}")
+
+    # step_many(16) against 16 step() calls from one state, with every lane
+    # crossing the wrap inside the block
+    block = [Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=24, rid=100 + i)
+             for i, n in enumerate(rng.integers(W - 10, W - 2, WINDOWED["slots"]))]
+    for slot, r in enumerate(block):
+        eng.admit(r, slot)
+    profile = profile_window(torch, eng.step, 4)
+    snap = _snapshot(eng)
+    blk = eng.step_many(16)
+    got = {r.rid: list(eng.outputs[r.rid]) for r in block}
+    _restore(eng, snap)
+    seq = []
+    for _ in range(16):
+        seq.extend(eng.step())
+    check(blk == seq and got == {r.rid: list(eng.outputs[r.rid]) for r in block},
+          "windowed zamba2: step_many(16) differs from 16 step() calls")
+    while any(r is not None for r in eng.slot_req):
+        eng.step()
+    full = [t for t, n in step_s if n == WINDOWED["slots"]]
+    n_tokens = sum(len(ts) for ts in out.values())
+    stats = {
+        "model": f"{cfg.name} attn_window {W}", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "num_slots": WINDOWED["slots"], "max_len": WINDOWED["max_len"], "ring": W,
+        "prompt_tokens": int(lengths.sum()), "prompts": [int(n) for n in lengths],
+        "requests_wrapped": wrapped, "run_wall_s": wall, "run_tokens": n_tokens,
+        "tokens_per_s": n_tokens / wall,
+        "ttft_ms_p50": 1e3 * float(np.median(ttft[:n_req])),
+        "ttft_ms_max": 1e3 * float(np.max(ttft[:n_req])),
+        "decode_step_ms_p50_8_active": 1e3 * float(np.median(full)),
+        "decode_step_ms_p90_8_active": 1e3 * float(np.percentile(full, 90)),
+        "decode_step_n_8_active": len(full), "steps_dispatched": steps, "admissions": n_req,
+        "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile_decode_step": profile,
+    }
+    print(f"served {stats['model']} past the ring's wrap ({wrapped} of {n_req} requests "
+          f"wrapped): {stats}")
+    return stats
+
+
+def decode_kv_quant(torch, steps: int = 64) -> dict:
+    """internlm2-20b at its full config (48 layers, bf16 weights): 8
+    sequences decoded step by step from position 0 on the same token
+    stream, once over the bf16 cache and once over the int8 cache; logits
+    within the reference test's bound (max |int8 - bf16| / max |bf16| <
+    0.05), step times side by side, 48 int8 decode launches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("internlm2-20b"), param_dtype="bfloat16")
+    models = {"bf16": build_model(cfg), "int8": build_model(dataclasses.replace(cfg,
+                                                                                kv_quant=True))}
+    params = models["bf16"].init(seed=0)
+    B, max_len = 8, 2048
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                (B, steps))).to(DEVICE)
+    logits, step_ms, launches = {}, {}, {}
+    for name, model in models.items():
+        cache = model.init_cache(B, max_len)
+        zero_counts()
+        out, times = [], []
+        for t in range(steps):
+            t0 = time.perf_counter()
+            lg, _ = model.decode_step(params, cache, {"tokens": tokens[:, t:t + 1],
+                                                      "pos": torch.tensor(t, device=DEVICE)})
+            out.append(lg[:, 0].float())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches[name] = read_counts()
+        logits[name] = torch.stack(out)
+        step_ms[name] = 1e3 * float(np.median(times))
+        del cache
+    L = cfg.num_layers
+    for name, want_q8 in (("bf16", 0), ("int8", L * steps)):
+        expected = dict.fromkeys(launches[name], 0)
+        expected.update(decode_attention=L * steps, decode_attention_q8=want_q8)
+        check(launches[name] == expected, f"kv_quant decode {name} launches {launches[name]}")
+    check(bool(torch.isfinite(logits["int8"]).all()), "kv_quant logits not finite")
+    rel = ((logits["int8"] - logits["bf16"]).abs().max() / logits["bf16"].abs().max()).item()
+    stats = {"model": f"{cfg.name} kv_quant", "layers": L, "sequences": B, "steps": steps,
+             "max_len": max_len, "step_ms_p50": step_ms,
+             "rel_logit_err_int8_vs_bf16": rel, "launches": launches["int8"],
+             "launches_bf16_cache": launches["bf16"]}
+    print(f"decoded {stats['model']}: {stats}")
+    check(rel < 0.05, f"kv_quant logits {rel} from the bf16 cache's (bound 0.05)")
+    return stats
+
+
+def decode_whisper(torch, steps: int = 64) -> dict:
+    """whisper-large-v3 at its full config (32 + 32 layers, bf16): 8
+    sequences over 1500 stub frames (numpy seed 0), a 4-token prompt, 64
+    greedy steps; encoder, prefill and step times; flash 96 per prefill
+    (32 encoder, 32 self, 32 cross), decode 64 per step (self + cross)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    B, T, F = 8, 4, cfg.encdec.encoder_frames
+    frames = torch.from_numpy(rng.standard_normal((B, F, cfg.d_model), np.float32)).to(DEVICE)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))).to(DEVICE),
+             "frames": frames}
+    W.encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W.encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    encoder_ms = 1e3 * (time.perf_counter() - t0)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, pre = model.prefill(params, batch)
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    cache = model.init_cache(B, T + steps)
+    for n in ("k", "v"):
+        cache["self"][n][:, :, :T] = pre["self"][n]
+    cache["cross"] = pre["cross"]
+    out, times = [nxt], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, {"tokens": nxt, "pos": T + i})
+        nxt = lg[:, -1].argmax(-1, keepdim=True)
+        out.append(nxt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    L, Le = cfg.num_layers, cfg.encdec.encoder_layers
+    expected = dict.fromkeys(launches, 0)
+    expected.update(flash_attention=Le + 2 * L, decode_attention=2 * L * steps)
+    check(launches == expected, f"whisper launches {launches} != {expected}")
+    toks = torch.cat(out, dim=1).cpu()
+    check(bool(torch.isfinite(lg).all()) and toks.shape == (B, steps + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "whisper decode output")
+    stats = {"model": cfg.name, "layers": f"{Le} + {L}", "sequences": B, "frames": F,
+             "prompt": T, "steps": steps, "encoder_ms": encoder_ms, "prefill_ms": prefill_ms,
+             "step_ms_p50": 1e3 * float(np.median(times)),
+             "step_ms_p90": 1e3 * float(np.percentile(times, 90)), "launches": launches}
+    print(f"decoded {cfg.name}: {stats}")
+    return stats
+
+
+def decode_vlm(torch, steps: int = 32) -> dict:
+    """internvl2-76b at full width and 2 layers (its 80 layers do not fit
+    one 80 GB card in bf16): 8 sequences of 256 patch embeddings (numpy
+    seed 0) and 16 text tokens, prefill, 32 greedy steps; flash 2 per
+    prefill, decode 2 per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("internvl2-76b"), num_layers=2, param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    B, T, P = 8, 16, cfg.vlm.num_patches
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))).to(DEVICE),
+             "patch_embeds": torch.from_numpy(rng.standard_normal((B, P, cfg.d_model),
+                                                                  np.float32)).to(DEVICE)}
+    model.prefill(params, batch)   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, pre = model.prefill(params, batch)
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    cache = model.init_cache(B, P + T + steps)
+    for n in ("k", "v"):
+        cache[n][:, :, :P + T] = pre[n]
+    out, times = [nxt], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, {"tokens": nxt, "pos": P + T + i})
+        nxt = lg[:, -1].argmax(-1, keepdim=True)
+        out.append(nxt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    L = cfg.num_layers
+    expected = dict.fromkeys(launches, 0)
+    expected.update(flash_attention=L, decode_attention=L * steps)
+    check(launches == expected, f"internvl2 launches {launches} != {expected}")
+    toks = torch.cat(out, dim=1).cpu()
+    check(bool(torch.isfinite(lg).all()) and toks.shape == (B, steps + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "internvl2 decode output")
+    stats = {"model": cfg.name, "layers": L, "sequences": B, "patches": P, "prompt": T,
+             "steps": steps, "prefill_ms": prefill_ms,
+             "step_ms_p50": 1e3 * float(np.median(times)),
+             "step_ms_p90": 1e3 * float(np.percentile(times, 90)), "launches": launches}
+    print(f"decoded {cfg.name} (2 of 80 layers): {stats}")
     return stats
 
 
@@ -1327,11 +2100,6 @@ def cluster_serve(torch) -> dict:
     TTFT and host RPCs per emitted token for each."""
     from repro_torch.configs import get_config
     from repro_torch.core import migratable as mig
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fla
-    from repro_torch.kernels import grouped_matmul as gmm
-    from repro_torch.kernels import mamba2_ssd as ssd
-    from repro_torch.kernels import mlstm
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import ClusterServingEngine, Request, ServingEngine
     from repro_torch.serve.handlers import _NODE_ENGINES, MAX_PROMPT
@@ -1392,22 +2160,17 @@ def cluster_serve(torch) -> dict:
         return lambda: {rid: ev["t_first"] for rid, ev in eng._events.items()
                         if rid < n_req and "t_first" in ev}
 
-    def counts():
-        return {"decode_attention": dec.launches, "flash_attention": fla.launches,
-                "grouped_matmul": gmm.launches, "mlstm": mlstm.launches,
-                "mamba2_ssd": ssd.launches}
-
     def drive(name, engines, run, first_tokens, sched=None):
         steps0 = sum(e.steps_dispatched for e in engines)
         rpc0 = 0 if sched is None else sched.stats["submitted"] + sched.stats["oneways"]
         routed0 = {} if sched is None else dict(sched.stats["routed"])
-        dec.launches = fla.launches = gmm.launches = mlstm.launches = ssd.launches = 0
+        zero_counts()
         t0 = time.monotonic()
         out = run(requests())
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         first = first_tokens()
-        launches = counts()
+        launches = read_counts()
         steps = sum(e.steps_dispatched for e in engines) - steps0
         tokens = sum(len(v) for v in out.values())
         check(sorted(out) == list(range(n_req)) and all(len(v) == new for v in out.values()),
@@ -1415,8 +2178,8 @@ def cluster_serve(torch) -> dict:
         check(sorted(first) == list(range(n_req)),
               f"{name}: first tokens of {sorted(first)} reached the host")
         L = cfg.num_layers
-        expected = {"decode_attention": L * steps, "flash_attention": L * n_req,
-                    "grouped_matmul": 0, "mlstm": 0, "mamba2_ssd": 0}
+        expected = dict.fromkeys(launches, 0)
+        expected.update(decode_attention=L * steps, flash_attention=L * n_req)
         check(launches == expected, f"{name}: launches {launches} != {expected} "
               f"({steps} decode steps, {n_req} admissions)")
         ttft = sorted(1e3 * (first[r] - t0) for r in range(n_req))
@@ -1830,8 +2593,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    sources = sorted({Path(meta["source"]).stem for meta in KERNELS.values()})
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for kernel, regs, spill in ptxas_summary(log):
             print(f"  nvcc {name}: {kernel}: {regs}; {spill}")
@@ -1852,12 +2616,28 @@ def main() -> int:
         run(torch)
         release(torch)
         print(f"model check {arch} took {time.perf_counter() - t0:.1f} s")
+    for what, run in (("zamba2-2.7b windowed", check_zamba2_window),
+                      ("whisper-large-v3", check_whisper), ("internvl2-76b", check_vlm),
+                      ("internlm2-20b kv_quant", check_kv_quant)):
+        t0 = time.perf_counter()
+        run(torch)
+        release(torch)
+        print(f"model check {what} took {time.perf_counter() - t0:.1f} s")
     served = {}
     for arch in SERVED:
         t0 = time.perf_counter()
         served[arch] = serve(torch, arch)
         release(torch)
         print(f"serve {arch} took {time.perf_counter() - t0:.1f} s")
+    full = {}
+    for what, run in (("zamba2-2.7b windowed", serve_windowed),
+                      ("internlm2-20b kv_quant", decode_kv_quant),
+                      ("whisper-large-v3", decode_whisper), ("internvl2-76b", decode_vlm)):
+        t0 = time.perf_counter()
+        full[what] = run(torch)
+        full[what]["card"] = smi[0]
+        release(torch)
+        print(f"phase 5b {what} took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cluster = cluster_serve(torch)
     cluster["card"] = smi[0]
@@ -1869,10 +2649,12 @@ def main() -> int:
     fabrics["card"] = smi[0]
     release(torch)
     print(f"phase 7b (fresh-interpreter process fabrics) took {fabrics['fresh_s']:.1f} s")
-    runs = [s["launches"] for s in served.values()] + [
+    runs = [s["launches"] for s in (*served.values(), *full.values())] + [
         cluster[m]["launches"]
         for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")]
 
+    extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
+             "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled")
     kernels = []
     for name, meta in KERNELS.items():
         rec = records[name]
@@ -1887,18 +2669,20 @@ def main() -> int:
         if rec["library_ms"] is None:
             entry["library"] = rec["library"]
         entry["shape"] = rec["shape"]
-        entry.update({k: rec[k] for k in ("ms_by_splits", "previous", "host_us", "passes_ms")
-                      if k in rec})
+        if "variant" in meta:
+            entry["variant"] = meta["variant"]
+        entry.update({k: rec[k] for k in extra if k in rec})
         for key, rec in records.items():   # the same kernel at other timed shapes
-            if key.startswith(f"{name}_"):
+            owner = max((n for n in KERNELS if key.startswith(f"{n}_")), key=len, default=None)
+            if owner == name:
                 entry[key[len(name) + 1:]] = {k: rec[k] for k in (
                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "ms_by_splits", "previous", "host_us", "passes_ms")
-                    if k in rec}
+                    "library_ms", *extra) if k in rec}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     for stats in served.values():
         print(json.dumps({"serve": stats}))
+    print(json.dumps({"attention_paths": full}))
     print(json.dumps({"cluster_serve": cluster}))
     print(json.dumps({"process_fabrics": fabrics}))
     print(json.dumps({"ok": True, "device": {

@@ -115,18 +115,22 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
-def counted(launch):
-    """Decorate a kernel module's launch function: each call that returns
-    adds one to its module's ``launches`` under a lock.  Serving replicas on
+def count(module_name: str, counter: str = "launches") -> None:
+    """Add one to the module's ``counter`` under a lock.  Serving replicas on
     thread workers launch at once, and a bare ``launches += 1`` on a module
     global is a read-modify-write that two threads can interleave and lose."""
-    module = sys.modules[launch.__module__]
+    module = sys.modules[module_name]
+    with _COUNT_LOCK:
+        setattr(module, counter, getattr(module, counter) + 1)
 
+
+def counted(launch):
+    """Decorate a kernel module's launch function: each call that returns
+    adds one to its module's ``launches`` (:func:`count`)."""
     @functools.wraps(launch)
     def launch_and_count(*args, **kwargs):
         out = launch(*args, **kwargs)
-        with _COUNT_LOCK:
-            module.launches += 1
+        count(launch.__module__)
         return out
     return launch_and_count
 

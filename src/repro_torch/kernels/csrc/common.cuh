@@ -73,6 +73,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
 }
+// 4 bytes global -> shared (cp.async.ca: the only sizes below 16 are 4 and
+// 8), of which `bytes` (4 or 0) are read and the rest zero-filled
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -35,6 +35,17 @@
 //    distributed shared memory, rescales, sums and writes
 //    acc / max(sum, 1e-30); a second barrier keeps the others resident
 //    until it has read them.  No scratch in device memory, one launch.
+//
+// The int8 variant (ham_decode_attention_q8) reads the reference's kv_quant
+// cache (repro/models/layers.py:269-301): int8 K/V with one float32 scale
+// per (sequence, position, kv head) vector.  Its bound is bytes too, half
+// the bf16 cache's plus the scales (at the serving shape 33.6 MB + 1.0 MB,
+// 10.3 us).  It is the same kernel with one step more per tile: the int8
+// rows (16 per cp.async) and their scales arrive in a ring of their own,
+// and each warp widens its own rows of the current stage into one tile of
+// the compute type, k = round(T(int8) * T(scale)) as the reference
+// dequantizes, before the unchanged split/cluster/mma.sync body consumes
+// them.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -59,9 +70,16 @@ __host__ __device__ constexpr int tile_keys() { return sizeof(T) == 2 ? 64 : 32;
 template <typename T, int D>
 __host__ __device__ constexpr int row_elems() { return D + 16 / static_cast<int>(sizeof(T)); }
 
-template <typename T, int D>
+// int8 tile rows: D bytes and 16 of padding
+template <int D>
+__host__ __device__ constexpr int row8() { return D + 16; }
+
+// the K/V ring; with Q8 the int8 ring, its scales and the widened tile
+template <typename T, int D, bool Q8>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return sizeof(T) * kStages * 2 * tile_keys<T>() * row_elems<T, D>();
+  return Q8 ? kStages * 2 * tile_keys<T>() * (row8<D>() + sizeof(float)) +
+                  sizeof(T) * 2 * tile_keys<T>() * row_elems<T, D>()
+            : sizeof(T) * kStages * 2 * tile_keys<T>() * row_elems<T, D>();
 }
 // part_acc, part_m, part_l, blk_acc, blk_m, blk_l and the merge weights
 template <int D>
@@ -70,9 +88,9 @@ __host__ __device__ constexpr size_t merge_bytes() {
                           kMaxSplits * kMaxQpk);
 }
 // the ring, whose bytes hold the merge buffers after the key loop
-template <typename T, int D>
+template <typename T, int D, bool Q8>
 __host__ __device__ constexpr size_t pool_bytes() {
-  return ring_bytes<T, D>() > merge_bytes<D>() ? ring_bytes<T, D>() : merge_bytes<D>();
+  return ring_bytes<T, D, Q8>() > merge_bytes<D>() ? ring_bytes<T, D, Q8>() : merge_bytes<D>();
 }
 // float32 only: each warp's p and rescale per head
 template <typename T>
@@ -80,30 +98,53 @@ __host__ __device__ constexpr size_t scratch_bytes() {
   return std::is_same_v<T, float>
              ? sizeof(float) * kWarps * kMaxQpk * (tile_keys<T>() / kWarps + 1) : 0;
 }
-template <typename T, int D>
+template <typename T, int D, bool Q8>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(T) * kMaxQpk * row_elems<T, D>() + pool_bytes<T, D>() + scratch_bytes<T>();
+  return sizeof(T) * kMaxQpk * row_elems<T, D>() + pool_bytes<T, D, Q8>() + scratch_bytes<T>();
 }
 
-template <typename T, int D>
+// the scales of the int8 variant: element strides of (b, h, s); null
+// pointers for the plain variant
+struct Scales {
+  const float* k;
+  const float* v;
+  int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+};
+
+// the reference's dequantization, q_dtype(x) * q_dtype(scale) rounded to
+// q_dtype (an int8 value and a bf16 scale multiply exactly in float32)
+__device__ __forceinline__ float dequant(int8_t x, float s, float) { return x * s; }
+__device__ __forceinline__ __nv_bfloat16 dequant(int8_t x, float s, __nv_bfloat16) {
+  return __float2bfloat16_rn(static_cast<float>(x) * __bfloat162float(__float2bfloat16_rn(s)));
+}
+
+template <typename T, int D, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+decode_kernel(const T* __restrict__ q, const std::conditional_t<Q8, int8_t, T>* __restrict__ k,
+              const std::conditional_t<Q8, int8_t, T>* __restrict__ v,
               const int* __restrict__ lengths, T* __restrict__ out, int qpk, int S,
               int64_t q_sb, int64_t q_sh, int64_t q_sg,
               int64_t k_sb, int64_t k_sh, int64_t k_ss,
               int64_t v_sb, int64_t v_sh, int64_t v_ss,
-              int64_t o_sb, int64_t o_sh, int64_t o_sg, float scale_log2) {
+              int64_t o_sb, int64_t o_sh, int64_t o_sg, float scale_log2, Scales sc) {
+  using KV = std::conditional_t<Q8, int8_t, T>;
   constexpr bool kBF16 = std::is_same_v<T, __nv_bfloat16>;
   constexpr int KT = tile_keys<T>();          // keys a stage
   constexpr int KW = KT / kWarps;             // keys a warp takes of each stage
   constexpr int RS = row_elems<T, D>();       // tile row (elements)
   constexpr int VN = 16 / sizeof(T);          // elements of a 16-byte vector
   constexpr int CH = D / VN;                  // 16-byte vectors a row
+  constexpr int R8 = row8<D>();               // int8 tile row (bytes)
   static_assert(D % 16 == 0, "head_dim");
 
   extern __shared__ float4 smem4[];
   T* qs = reinterpret_cast<T*>(smem4);        // [kMaxQpk][RS]; rows >= qpk zero
   T* ring = qs + kMaxQpk * RS;                // [kStages][K, V][KT][RS]
+  // int8 variant: [kStages][K, V][KT][R8] bytes, then [kStages][K, V][KT]
+  // scales, then the widened [K, V][KT][RS] tile the body reads
+  int8_t* ring8 = reinterpret_cast<int8_t*>(ring);
+  float* scl = reinterpret_cast<float*>(ring8 + kStages * 2 * KT * R8);
+  T* wide = reinterpret_cast<T*>(scl + kStages * 2 * KT);
   // after the key loop the ring holds the merge buffers
   float* part_acc = reinterpret_cast<float*>(ring);  // [kWarps][kMaxQpk][D]
   float* part_m = part_acc + kWarps * kMaxQpk * D;   // [kWarps][kMaxQpk]
@@ -112,7 +153,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* blk_m = blk_acc + kMaxQpk * D;
   float* blk_l = blk_m + kMaxQpk;
   float* wgt = blk_l + kMaxQpk;                      // [kMaxSplits][kMaxQpk]
-  float* scratch = reinterpret_cast<float*>(reinterpret_cast<char*>(ring) + pool_bytes<T, D>());
+  float* scratch =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(ring) + pool_bytes<T, D, Q8>());
 
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = gridDim.x, rank = static_cast<int>(cluster.block_rank());
@@ -122,8 +164,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int chunk = ((len + splits - 1) / splits + kAlign - 1) / kAlign * kAlign;
   const int k_lo = min(len, rank * chunk), k_hi = min(len, k_lo + chunk);
   const int nt = (k_hi - k_lo + KT - 1) / KT;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const KV* kb = k + b * k_sb + h * k_sh;
+  const KV* vb = v + b * v_sb + h * v_sh;
 
   // the group's query rows (rows >= qpk zero) in the first cp.async group
   const T* qb = q + b * q_sb + h * q_sh;
@@ -133,14 +175,61 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
   // key tile i -> stage i % kStages; keys at or past k_hi are zero-filled
   const auto load_tile = [&](int i) {
-    T* ks = ring + (i % kStages) * 2 * KT * RS;
-    T* vs = ks + KT * RS;
     const int key0 = k_lo + i * KT;
-    for (int idx = tid; idx < KT * CH; idx += kThreads) {
-      const int r = idx / CH, c = (idx % CH) * VN;
-      const bool ok = key0 + r < k_hi;
-      cp_async16(ks + r * RS + c, ok ? kb + (key0 + r) * k_ss + c : kb, ok ? 16 : 0);
-      cp_async16(vs + r * RS + c, ok ? vb + (key0 + r) * v_ss + c : vb, ok ? 16 : 0);
+    if constexpr (Q8) {
+      int8_t* ks = ring8 + (i % kStages) * 2 * KT * R8;
+      int8_t* vs = ks + KT * R8;
+      for (int idx = tid; idx < KT * (D / 16); idx += kThreads) {
+        const int r = idx / (D / 16), c = (idx % (D / 16)) * 16;
+        const bool ok = key0 + r < k_hi;
+        cp_async16(ks + r * R8 + c, ok ? kb + (key0 + r) * k_ss + c : kb, ok ? 16 : 0);
+        cp_async16(vs + r * R8 + c, ok ? vb + (key0 + r) * v_ss + c : vb, ok ? 16 : 0);
+      }
+      float* ss = scl + (i % kStages) * 2 * KT;  // [K, V][KT]
+      const float* kscale = sc.k + b * sc.k_sb + h * sc.k_sh;
+      const float* vscale = sc.v + b * sc.v_sb + h * sc.v_sh;
+      for (int r = tid; r < 2 * KT; r += kThreads) {
+        const int key = key0 + r % KT;
+        const bool ok = key < k_hi;
+        const float* src = r < KT ? kscale + key * sc.k_ss : vscale + key * sc.v_ss;
+        cp_async4(ss + r, ok ? src : kscale, ok ? 4 : 0);
+      }
+    } else {
+      T* ks = ring + (i % kStages) * 2 * KT * RS;
+      T* vs = ks + KT * RS;
+      for (int idx = tid; idx < KT * CH; idx += kThreads) {
+        const int r = idx / CH, c = (idx % CH) * VN;
+        const bool ok = key0 + r < k_hi;
+        cp_async16(ks + r * RS + c, ok ? kb + (key0 + r) * k_ss + c : kb, ok ? 16 : 0);
+        cp_async16(vs + r * RS + c, ok ? vb + (key0 + r) * v_ss + c : vb, ok ? 16 : 0);
+      }
+    }
+  };
+  // the K and V tiles of key tile t: the ring's stage (landed for every
+  // thread at the caller's barrier), or (int8) the stage widened into
+  // `wide`.  Each warp reads only its own KW rows of K and V, so it widens
+  // just those: warp-local syncs, no second block barrier
+  const auto stage = [&](int t) -> const T* {
+    if constexpr (Q8) {
+      const int8_t* src = ring8 + (t % kStages) * 2 * KT * R8;
+      const float* ss = scl + (t % kStages) * 2 * KT;
+      __syncwarp();  // this warp's lanes are done with its rows of the last tile
+      for (int idx = lane; idx < 2 * KW * CH; idx += 32) {
+        const int rr = idx / CH, c = (idx % CH) * VN;  // rr: K rows, then V rows
+        const int r = KW * warp + (rr < KW ? rr : KT - KW + rr);
+        const float s = ss[r];
+        using Raw = std::conditional_t<VN == 8, uint2, unsigned>;  // VN int8 values
+        alignas(16) int8_t x[VN];
+        *reinterpret_cast<Raw*>(x) = *reinterpret_cast<const Raw*>(src + r * R8 + c);
+        alignas(16) T y[VN];
+#pragma unroll
+        for (int e = 0; e < VN; ++e) y[e] = dequant(x[e], s, T{});
+        *reinterpret_cast<uint4*>(wide + r * RS + c) = *reinterpret_cast<const uint4*>(y);
+      }
+      __syncwarp();
+      return wide;
+    } else {
+      return ring + (t % kStages) * 2 * KT * RS;
     }
   };
 #pragma unroll
@@ -169,7 +258,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
       if (t + kStages - 1 < nt) load_tile(t + kStages - 1);
       cp_async_commit();
-      const T* kt = ring + (t % kStages) * 2 * KT * RS + KW * warp * RS;  // this warp's keys
+      const T* kt = stage(t) + KW * warp * RS;  // this warp's keys
       const T* vt = kt + KT * RS;
       const int kw0 = k_lo + t * KT + KW * warp;
       if (kw0 >= k_hi) continue;  // warp-uniform: none of this warp's keys is valid
@@ -270,7 +359,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       __syncthreads();
       if (t + kStages - 1 < nt) load_tile(t + kStages - 1);
       cp_async_commit();
-      const T* kt = ring + (t % kStages) * 2 * KT * RS + KW * warp * RS;
+      const T* kt = stage(t) + KW * warp * RS;
       const T* vt = kt + KT * RS;
       const int kw0 = k_lo + t * KT + KW * warp;
       if (kw0 >= k_hi) continue;
@@ -404,12 +493,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   cluster.sync();  // the other blocks stay resident until rank 0 has read them
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Q8>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-           int B, int Hkv, int qpk, int S, int splits, const long long* st,
+           int B, int Hkv, int qpk, int S, int splits, const long long* st, const Scales& sc,
            cudaStream_t stream) {
-  auto kernel = decode_kernel<T, D>;
-  constexpr size_t smem = smem_bytes<T, D>();
+  using KV = std::conditional_t<Q8, int8_t, T>;
+  auto kernel = decode_kernel<T, D, Q8>;
+  constexpr size_t smem = smem_bytes<T, D, Q8>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -424,24 +514,46 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), lengths, static_cast<T*>(out), qpk, S,
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const KV*>(k),
+                           static_cast<const KV*>(v), lengths, static_cast<T*>(out), qpk, S,
                            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
                            st[10], st[11],
-                           1.4426950408889634f / sqrtf(static_cast<float>(D)));
+                           1.4426950408889634f / sqrtf(static_cast<float>(D)), sc);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q8>
 int dispatch(int d, const void* q, const void* k, const void* v, const int* lengths, void* out,
-             int B, int Hkv, int qpk, int S, int splits, const long long* st,
+             int B, int Hkv, int qpk, int S, int splits, const long long* st, const Scales& sc,
              cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, stream);
-    case 64: return launch<T, 64>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, stream);
-    case 80: return launch<T, 80>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, stream);
-    case 128: return launch<T, 128>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, stream);
+    case 32: return launch<T, 32, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    case 64: return launch<T, 64, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    case 80: return launch<T, 80, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    case 128:
+      return launch<T, 128, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    default: return kUnsupported;
+  }
+}
+
+template <bool Q8>
+int run(const void* q, const void* k, const void* v, const void* lengths, void* out, int B,
+        int Hkv, int qpk, int S, int d, int dtype, int splits, const long long* st,
+        const Scales& sc, int device, void* stream) {
+  if (qpk < 1 || qpk > kMaxQpk) return kUnsupported;
+  if (splits != 1 && splits != 2 && splits != 4 && splits != kMaxSplits) return kUnsupported;
+  if (B == 0 || Hkv == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int* len = static_cast<const int*>(lengths);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return dispatch<float, Q8>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, sc, s);
+    case kBF16:
+      return dispatch<__nv_bfloat16, Q8>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, sc,
+                                         s);
     default: return kUnsupported;
   }
 }
@@ -461,21 +573,30 @@ extern "C" int ham_decode_attention(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_sg,
     int device, void* stream) {
-  if (qpk < 1 || qpk > ham::kMaxQpk) return ham::kUnsupported;
-  if (splits != 1 && splits != 2 && splits != 4 && splits != ham::kMaxSplits)
-    return ham::kUnsupported;
-  if (B == 0 || Hkv == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   const long long st[12] = {q_sb, q_sh, q_sg, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_sg};
-  const int* len = static_cast<const int*>(lengths);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ham::kF32:
-      return ham::dispatch<float>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, s);
-    case ham::kBF16:
-      return ham::dispatch<__nv_bfloat16>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, s);
-    default: return ham::kUnsupported;
-  }
+  return ham::run<false>(q, k, v, lengths, out, B, Hkv, qpk, S, d, dtype, splits, st,
+                         ham::Scales{}, device, stream);
+}
+
+// The int8 variant: k/v int8 (B, Hkv, S, d) as above; k_scale/v_scale
+// float32 (B, Hkv, S, 1), element strides of their three outer dims; q and
+// out float32 or bf16 (dtype), K/V dequantized to that type.
+extern "C" int ham_decode_attention_q8(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* lengths, void* out,
+    int B, int Hkv, int qpk, int S, int d, int dtype, int splits,
+    long long q_sb, long long q_sh, long long q_sg,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_sg,
+    long long ks_sb, long long ks_sh, long long ks_ss,
+    long long vs_sb, long long vs_sh, long long vs_ss,
+    int device, void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_sg, k_sb, k_sh, k_ss,
+                            v_sb, v_sh, v_ss, o_sb, o_sh, o_sg};
+  const ham::Scales sc{static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                       ks_sb, ks_sh, ks_ss, vs_sb, vs_sh, vs_ss};
+  return ham::run<true>(q, k, v, lengths, out, B, Hkv, qpk, S, d, dtype, splits, st, sc,
+                        device, stream);
 }

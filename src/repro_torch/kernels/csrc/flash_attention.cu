@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (_flash_kernel): query head h of sequence b attends over kv head
 // h / (H / Hkv) (the Pallas kernel's bh // q_per_kv), with keys j <= i
-// when causal.
+// when causal, and with a sliding window (window > 0, causal only) keys
+// i - window < j <= i: the reference model's causal_mask
+// (repro/models/layers.py:211-219), which the Pallas kernel lacks.
 //
 // Bound on an H100: operations (a causal prefill of S=1024 over 48 heads of
 // d=128 does ~12.9 GFLOP on ~29 MB: 13 us at the bf16 tensor-core peak, 9 us
@@ -28,7 +30,11 @@
 //    sum reduced across each quad of lanes; masks apply only on the diagonal
 //    tile and the ragged tail, with the finite kNegInf;
 //  * the key loop stops at the causal diagonal, and the query tiles with the
-//    most key tiles are scheduled first, across all heads;
+//    most key tiles are scheduled first, across all heads; with a window it
+//    starts at the key tile holding q0 - window + 1 (q0 the tile's first
+//    row), so the tiles left of the window are never loaded, and a warp
+//    skips a tile whose keys all lie left of its rows' windows; the
+//    window's edge is masked inside its first tiles;
 //  * q/k/v/o go through (b, h, s) strides, so the model's (B, S, H, d)
 //    activations are read and written in place; o is staged through shared
 //    memory and stored in 16-byte vectors.
@@ -84,10 +90,13 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src, 
   }
 }
 
-template <typename T, int D>
+// W: a sliding window (window > 0).  A template flag: tested at run time,
+// the window cost every causal call instructions and registers (6-13% at
+// the served shapes)
+template <typename T, int D, bool W>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int H, int Hkv, int S, int Skv, int causal,
+             T* __restrict__ o, int H, int Hkv, int S, int Skv, int causal, int window,
              int64_t q_sb, int64_t q_sh, int64_t q_ss,
              int64_t k_sb, int64_t k_sh, int64_t k_ss,
              int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -123,7 +132,8 @@ flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int q_last = min(q0 + kBQ, S) - 1;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_begin = W ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed; the q tile is written
     load_tile<T, D>(ks, QS, kb, k_ss, k0, Skv, 1.f, tid);
     load_tile<T, D>(vs, D, vb, v_ss, k0, Skv, 1.f, tid);
@@ -157,7 +167,8 @@ flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kj = k0 + tx + 16 * c;
-        if (kj >= Skv || (causal && kj > qi)) s[r][c] = kNegInf;
+        if (kj >= Skv || (causal && kj > qi) || (W && kj <= qi - window))
+          s[r][c] = kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
 #pragma unroll
@@ -227,11 +238,16 @@ __host__ __device__ constexpr size_t smem16() {
   return sizeof(__nv_bfloat16) * (D + 8) * (16 * warps16<D>() + 2 * kKeys * kStages);
 }
 
-template <int D>
-__global__ void __launch_bounds__(32 * warps16<D>())
+// at d = 80 two blocks share an SM (90 KB of shared memory each) if a
+// thread keeps to 128 registers, which the windowed build exceeds unasked
+template <int D, bool W>
+__host__ __device__ constexpr int min_blocks16() { return W && D == 80 ? 2 : 1; }
+
+template <int D, bool W>
+__global__ void __launch_bounds__(32 * warps16<D>(), min_blocks16<D, W>())
 flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-                  int Hkv, int S, int Skv, int causal,
+                  int Hkv, int S, int Skv, int causal, int window,
                   int64_t q_sb, int64_t q_sh, int64_t q_ss,
                   int64_t k_sb, int64_t k_sh, int64_t k_ss,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -271,14 +287,16 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
   const int q_last = min(q0 + RQ, S) - 1;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int nk = (k_end + kKeys - 1) / kKeys;
+  // with a window, the first key tile holds the first row's oldest key
+  const int k_begin = W ? max(0, q0 - window + 1) / kKeys * kKeys : 0;
+  const int nk = (k_end - k_begin + kKeys - 1) / kKeys;
 
   load_rows(qs, qb, q_ss, q0, RQ, S);  // in the first group, with key tile 0
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < nk) {
-      load_rows(ks + st * kKeys * RS, kb, k_ss, st * kKeys, kKeys, Skv);
-      load_rows(vs + st * kKeys * RS, vb, v_ss, st * kKeys, kKeys, Skv);
+      load_rows(ks + st * kKeys * RS, kb, k_ss, k_begin + st * kKeys, kKeys, Skv);
+      load_rows(vs + st * kKeys * RS, vb, v_ss, k_begin + st * kKeys, kKeys, Skv);
     }
     cp_async_commit();
   }
@@ -304,14 +322,15 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     }
     const int pf = t + kStages - 1;
     if (pf < nk) {
-      load_rows(ks + (pf % kStages) * kKeys * RS, kb, k_ss, pf * kKeys, kKeys, Skv);
-      load_rows(vs + (pf % kStages) * kKeys * RS, vb, v_ss, pf * kKeys, kKeys, Skv);
+      load_rows(ks + (pf % kStages) * kKeys * RS, kb, k_ss, k_begin + pf * kKeys, kKeys, Skv);
+      load_rows(vs + (pf % kStages) * kKeys * RS, vb, v_ss, k_begin + pf * kKeys, kKeys, Skv);
     }
     cp_async_commit();
     const T* kt = ks + (t % kStages) * kKeys * RS;
     const T* vt = vs + (t % kStages) * kKeys * RS;
-    const int k0 = t * kKeys;
+    const int k0 = k_begin + t * kKeys;
     if (causal && k0 > wq + 15) continue;  // warp-uniform: every key is past its rows
+    if (W && k0 + kKeys - 1 <= wq - window) continue;  // ... or left of their windows
 
     // S = Q K^T: 16 rows x 64 keys a warp; kf = {b0, b1} of key tiles 2 np, 2 np + 1
     float s[NT][4];
@@ -331,7 +350,8 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       }
 
     // element (j, e): key k0 + 8 j + 2 (lane % 4) + e % 2, row r0 + 8 (e / 2)
-    const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > wq);
+    const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > wq) ||
+                        (W && k0 <= wq + 15 - window);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -339,7 +359,8 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
         s[j][e] *= scale_log2;
         if (masked) {
           const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1), row = r0 + 8 * (e >> 1);
-          if (key >= Skv || (causal && key > row)) s[j][e] = kNegInf;
+          if (key >= Skv || (causal && key > row) || (W && key <= row - window))
+            s[j][e] = kNegInf;
         }
       }
 
@@ -413,39 +434,39 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
-           int Skv, int causal, const long long* st, cudaStream_t stream) {
+           int Skv, int causal, int window, const long long* st, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   if constexpr (std::is_same_v<T, float>) {
-    auto kernel = flash_kernel_f32<T, D>;
+    auto kernel = window > 0 ? flash_kernel_f32<T, D, true> : flash_kernel_f32<T, D, false>;
     cudaError_t err = allow_smem(kernel, smem_bytes<D>());
     if (err != cudaSuccess) return err;
     const dim3 grid((S + kBQ - 1) / kBQ, B * H);
     kernel<<<grid, kThreads, smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, Hkv, S, Skv, causal, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11], scale);
+        static_cast<T*>(o), H, Hkv, S, Skv, causal, window, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
   } else {
-    auto kernel = flash_kernel_bf16<D>;
+    auto kernel = window > 0 ? flash_kernel_bf16<D, true> : flash_kernel_bf16<D, false>;
     cudaError_t err = allow_smem(kernel, smem16<D>());
     if (err != cudaSuccess) return err;
     const int rows = 16 * warps16<D>();
     const dim3 grid(B * H, (S + rows - 1) / rows);  // every head's heaviest tile first
     kernel<<<grid, 32 * warps16<D>(), smem16<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, Hkv, S, Skv, causal, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+        static_cast<T*>(o), H, Hkv, S, Skv, causal, window, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-             int S, int Skv, int causal, const long long* st, cudaStream_t stream) {
+             int S, int Skv, int causal, int window, const long long* st, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Skv, causal, st, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
     default: return kUnsupported;
   }
 }
@@ -454,16 +475,18 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace ham
 
 // q/o (B, H, S, d), k/v (B, Hkv, Skv, d): element strides of the three outer
-// dims (the last dim is contiguous).  Returns 0 or the launch error.
+// dims (the last dim is contiguous); window 0 means none and applies only
+// when causal.  Returns 0 or the launch error.
 extern "C" int ham_flash_attention(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int Hkv, int S, int Skv, int d, int causal, int dtype,
+    int B, int H, int Hkv, int S, int Skv, int d, int causal, int window, int dtype,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int device, void* stream) {
-  if (Hkv < 1 || H % Hkv) return ham::kUnsupported;
+  if (Hkv < 1 || H % Hkv || window < 0) return ham::kUnsupported;
+  if (!causal) window = 0;
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -471,9 +494,11 @@ extern "C" int ham_flash_attention(
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case ham::kF32: return ham::dispatch<float>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, st, s);
+    case ham::kF32:
+      return ham::dispatch<float>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, s);
     case ham::kBF16:
-      return ham::dispatch<__nv_bfloat16>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, st, s);
+      return ham::dispatch<__nv_bfloat16>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, window,
+                                          st, s);
     default: return ham::kUnsupported;
   }
 }

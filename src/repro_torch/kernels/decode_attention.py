@@ -28,6 +28,14 @@ What the design does about it:
 * bf16 runs both products on the tensor cores (``mma.sync``, the group
   padded to 16 rows), float32 on the CUDA cores; the softmax is online in
   float32.
+
+:func:`decode_attention_q8` reads the reference's int8 ``kv_quant`` cache
+(``repro/models/layers.py:269-301``): int8 K/V and one float32 scale per
+(sequence, position, kv head) vector, half the bf16 cache's bytes plus the
+scales (its bound).  The same kernel takes the int8 rows (16 a ``cp.async``)
+and their scales into a ring of their own and widens each tile in shared
+memory to the compute dtype as the reference dequantizes,
+``dtype(x) * dtype(scale)``, before the unchanged body consumes it.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import decode_attention_q8_ref, decode_attention_ref
 
 HEAD_DIMS = (32, 64, 80, 128)
 MAX_Q_PER_KV = 16
@@ -45,6 +53,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_decode_attention":
         [_P] * 5 + [_I] * 7 + [_L] * 12 + [_I, _P],
+    "ham_decode_attention_q8":
+        [_P] * 7 + [_I] * 7 + [_L] * 18 + [_I, _P],
 }
 
 #: cluster sizes the kernel takes (portable: at most 8 blocks a cluster)
@@ -54,8 +64,11 @@ SPLITS = (1, 2, 4, 8)
 #: merge); ``chip_smoke.py`` times every cluster size at the serving shapes
 TARGET_BLOCKS = 128
 
-#: kernel launches made by :func:`decode_attention` (plain calls not counted)
+#: kernel launches made by :func:`decode_attention` and
+#: :func:`decode_attention_q8` (plain calls not counted)
 launches = 0
+#: of those, the launches over an int8 cache
+launches_q8 = 0
 
 
 def num_splits(groups: int) -> int:
@@ -91,13 +104,32 @@ def decode_attention(q, k, v, lengths):
     return _launch(q, k, v, lengths)
 
 
-@_build.counted
-def _launch(q, k, v, lengths, splits=None):
-    """Launch the kernel; ``splits`` (one of :data:`SPLITS`) overrides
-    :func:`num_splits`, for timing the cluster sizes against each other."""
+def decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths):
+    """The plain PyTorch version, same signature as :func:`decode_attention_q8`."""
+    B, Hkv, qpk, d = q.shape
+    out = decode_attention_q8_ref(
+        q.reshape(B, Hkv * qpk, d), k, v, k_scale, v_scale, lengths, q_per_kv=qpk
+    )
+    return out.reshape(B, Hkv, qpk, d)
+
+
+def decode_attention_q8(q, k, v, k_scale, v_scale, lengths):
+    """:func:`decode_attention` over an int8 cache: q (B, Hkv, qpk, d)
+    float32 or bf16; k/v int8 (B, Hkv, S, d), any strides with a unit last
+    dim; k_scale/v_scale float32 (B, Hkv, S, 1), any strides.  K and V are
+    dequantized to q's dtype as the reference does, ``dtype(x) *
+    dtype(scale)``.  Returns (B, Hkv, qpk, d).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths)
+    return _launch(q, k, v, lengths, scales=(k_scale, v_scale))
+
+
+def _check_shapes(q, k, v, lengths):
     B, Hkv, qpk, d = q.shape
     S = k.shape[2]
-    dtype = _build.check_inputs("decode_attention", (q, k, v))
     if not (lengths.is_cuda and lengths.device == q.device):
         raise ValueError("decode_attention kernel needs lengths on q's CUDA device")
     if k.shape != (B, Hkv, S, d) or v.shape != k.shape or lengths.shape != (B,):
@@ -107,6 +139,20 @@ def _launch(q, k, v, lengths, splits=None):
     if d not in HEAD_DIMS or not 1 <= qpk <= MAX_Q_PER_KV:
         raise ValueError(f"decode_attention kernel takes head_dim in {HEAD_DIMS} "
                          f"and q_per_kv <= {MAX_Q_PER_KV}, got {d}, {qpk}")
+
+
+@_build.counted
+def _launch(q, k, v, lengths, splits=None, scales=None):
+    """Launch the kernel (the int8 variant when ``scales`` =
+    ``(k_scale, v_scale)`` is given); ``splits`` (one of :data:`SPLITS`)
+    overrides :func:`num_splits`, for timing the cluster sizes against each
+    other."""
+    if scales is not None:
+        return _launch_q8(q, k, v, lengths, splits, *scales)
+    B, Hkv, qpk, d = q.shape
+    S = k.shape[2]
+    dtype = _build.check_inputs("decode_attention", (q, k, v))
+    _check_shapes(q, k, v, lengths)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lengths = lengths.to(torch.int32).contiguous()
     lib = _build.library("decode_attention", _SIGNATURES)
@@ -117,4 +163,33 @@ def _launch(q, k, v, lengths, splits=None):
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention")
+    return out
+
+
+def _launch_q8(q, k, v, lengths, splits, k_scale, v_scale):
+    B, Hkv, qpk, d = q.shape
+    S = k.shape[2]
+    dtype = _build.check_inputs("decode_attention_q8", (q,))
+    _build.check_aux("decode_attention_q8", q, (k, v), torch.int8, "k/v")
+    _build.check_aux("decode_attention_q8", q, (k_scale, v_scale), torch.float32, "scales")
+    if not all(t.stride(-1) == 1 and _build._aligned(t) for t in (k, v)):
+        raise ValueError("decode_attention_q8 kernel needs int8 k/v with a unit last-dim "
+                         "stride and 16-byte aligned rows")
+    _check_shapes(q, k, v, lengths)
+    if k_scale.shape != (B, Hkv, S, 1) or v_scale.shape != k_scale.shape:
+        raise ValueError(f"decode_attention_q8 scales {tuple(k_scale.shape)} "
+                         f"{tuple(v_scale.shape)}, want {(B, Hkv, S, 1)}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lengths = lengths.to(torch.int32).contiguous()
+    lib = _build.library("decode_attention", _SIGNATURES)
+    err = lib.ham_decode_attention_q8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, Hkv, qpk, S, d, dtype,
+        splits or num_splits(B * Hkv),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *k_scale.stride()[:3], *v_scale.stride()[:3],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "decode_attention_q8")
+    _build.count(__name__, "launches_q8")
     return out

@@ -23,6 +23,12 @@ serving path), FlashAttention-2 style:
   skipped tiles above it with ``pl.when``), masks apply only on the diagonal
   and the ragged tail, and the query tiles with the most work are scheduled
   first;
+* a causal sliding window (``window``, the reference model's
+  ``causal_mask(window=)``; the Pallas kernel has none) starts each query
+  tile's key loop at the tile holding its first row's oldest key, so the
+  tiles left of the window are never loaded; the window's edge is masked
+  inside its first tiles.  Bound: 4 d H per (query, key) pair in the
+  window, sum_i min(i + 1, window) pairs a head;
 * GQA reads kv head ``h // q_per_kv`` (the Pallas kernel's
   ``bh // q_per_kv``), so repeated K/V are never materialised;
 * q/k/v/o are read and written through strides, so the model's
@@ -45,36 +51,43 @@ from repro_torch.kernels.ref import attention_ref
 HEAD_DIMS = (32, 64, 80, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ham_flash_attention": [_P] * 4 + [_I] * 8 + [_L] * 12 + [_I, _P],
+    "ham_flash_attention": [_P] * 4 + [_I] * 9 + [_L] * 12 + [_I, _P],
 }
 
 #: kernel launches made by :func:`flash_attention_heads` (plain calls not counted)
 launches = 0
+#: of those, the launches with a sliding window
+launches_window = 0
 
 
-def flash_attention_heads_plain(q, k, v, *, causal=True):
+def flash_attention_heads_plain(q, k, v, *, causal=True, window=None):
     """The plain PyTorch version of :func:`flash_attention_heads`."""
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = attention_ref(
         q.reshape(B * H, S, d), k.reshape(B * Hkv, Skv, d),
-        v.reshape(B * Hkv, Skv, d), causal=causal, q_per_kv=H // Hkv,
+        v.reshape(B * Hkv, Skv, d), causal=causal, q_per_kv=H // Hkv, window=window,
     )
     return out.reshape(B, H, S, d)
 
 
-def flash_attention_heads(q, k, v, *, causal=True, out=None):
+def flash_attention_heads(q, k, v, *, causal=True, window=None, out=None):
     """q: (B, H, S, d); k/v: (B, Hkv, Skv, d) with H % Hkv == 0; any
     strides with a unit last dim.  Query head h reads kv head
-    ``h // (H // Hkv)``; causal masks key j > query i.  Returns (B, H, S, d),
-    written into ``out`` if given.
+    ``h // (H // Hkv)``; causal masks key j > query i, and a ``window``
+    (causal only, as the reference's ``causal_mask``) also keys
+    j <= i - window.  Returns (B, H, S, d), written into ``out`` if given.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention window must be >= 1, got {window}")
+    if not causal:
+        window = None   # the reference applies a window only to causal masks
     if q.device.type == "cpu":
-        res = flash_attention_heads_plain(q, k, v, causal=causal)
+        res = flash_attention_heads_plain(q, k, v, causal=causal, window=window)
         return res if out is None else out.copy_(res)
-    return _launch(q, k, v, causal, out)
+    return _launch(q, k, v, causal, window, out)
 
 
 def flash_attention(q, k, v, *, causal=True, q_per_kv=1):
@@ -86,7 +99,7 @@ def flash_attention(q, k, v, *, causal=True, q_per_kv=1):
 
 
 @_build.counted
-def _launch(q, k, v, causal, out):
+def _launch(q, k, v, causal, window, out):
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if out is None:
@@ -102,9 +115,11 @@ def _launch(q, k, v, causal, out):
     lib = _build.library("flash_attention", _SIGNATURES)
     err = lib.ham_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Hkv, S, Skv, d, int(causal), dtype,
+        B, H, Hkv, S, Skv, d, int(causal), window or 0, dtype,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash_attention")
+    if window:
+        _build.count(__name__, "launches_window")
     return out

@@ -24,16 +24,18 @@ import torch
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import mlstm as _mlstm
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_q8
 from repro_torch.kernels.flash_attention import flash_attention_heads
 
 
-def flash_attention_bhsd(q, k, v, *, causal=True):
-    """q (B, S, H, hd); k/v (B, S, Hkv, hd) -> (B, S, H, hd)."""
+def flash_attention_bhsd(q, k, v, *, causal=True, window=None):
+    """q (B, Sq, H, hd); k/v (B, Skv, Hkv, hd) -> (B, Sq, H, hd).  Cross
+    attention (Sq != Skv) is non-causal; ``window`` applies only when
+    causal."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     flash_attention_heads(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, out=out.transpose(1, 2),
+        causal=causal, window=window, out=out.transpose(1, 2),
     )
     return out
 
@@ -45,6 +47,18 @@ def decode_attention_bhsd(q, k, v, lengths):
     Hkv = k.shape[2]
     q4 = q.reshape(B, Hkv, H // Hkv, hd)
     out = decode_attention(q4, k.transpose(1, 2), v.transpose(1, 2), lengths)
+    return out.reshape(B, 1, H, hd)
+
+
+def decode_attention_q8_bhsd(q, k, v, k_scale, v_scale, lengths):
+    """:func:`decode_attention_bhsd` over an int8 cache: k/v int8 (B, S,
+    Hkv, hd), k_scale/v_scale float32 (B, S, Hkv, 1), all read in place
+    through strides."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    t = lambda a: a.transpose(1, 2)
+    out = decode_attention_q8(q.reshape(B, Hkv, H // Hkv, hd), t(k), t(v), t(k_scale),
+                              t(v_scale), lengths)
     return out.reshape(B, 1, H, hd)
 
 

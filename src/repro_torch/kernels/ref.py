@@ -1,5 +1,6 @@
 """Plain PyTorch oracles for the attention, grouped-matmul, mLSTM and SSD kernels
-(port of ``repro.kernels.ref``, same signatures and layouts).
+(port of ``repro.kernels.ref``, same signatures and layouts), and for the
+port's windowed flash and int8 decode variants.
 
 No tiling, no shared-memory reasoning — just the math, in float32, with the
 result cast back to the input dtype.  They are the plain versions the CUDA
@@ -15,15 +16,19 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def attention_ref(q, k, v, *, causal=True, q_per_kv=1):
+def attention_ref(q, k, v, *, causal=True, q_per_kv=1, window=None):
     """Oracle for flash_attention.  q: (BH,S,d), k/v: (BKV,Skv,d); q row
-    ``bh`` reads kv row ``bh // q_per_kv``."""
+    ``bh`` reads kv row ``bh // q_per_kv``; causal keeps keys j <= i, and a
+    ``window`` (causal only) keys i - window < j <= i, as the reference
+    model's ``causal_mask``."""
     S, d = q.shape[1], q.shape[2]
     kk = k.repeat_interleave(q_per_kv, dim=0).float()
     vv = v.repeat_interleave(q_per_kv, dim=0).float()
     s = torch.einsum("htd,hsd->hts", q.float(), kk) / math.sqrt(d)
     if causal:
         mask = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device).tril()
+        if window is not None:
+            mask = mask.triu(1 - window)
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hts,hsd->htd", p, vv).to(q.dtype)
@@ -41,6 +46,20 @@ def decode_attention_ref(q, k, v, lengths, *, q_per_kv=1):
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bhsd->bhd", p, vv).to(q.dtype)
+
+
+def dequantize_kv(x, scale, dtype):
+    """The reference's int8 KV dequantization (``repro/models/layers.py:
+    293-294``): ``dtype(x) * dtype(scale)``, rounded to ``dtype``."""
+    return x.to(dtype) * scale.to(dtype)
+
+
+def decode_attention_q8_ref(q, k, v, k_scale, v_scale, lengths, *, q_per_kv=1):
+    """Oracle for the int8 decode: k/v int8 (B, Hkv, S, d), scales float32
+    (B, Hkv, S, 1), dequantized to q's dtype, then :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, dequantize_kv(k, k_scale, q.dtype),
+                                dequantize_kv(v, v_scale, q.dtype), lengths,
+                                q_per_kv=q_per_kv)
 
 
 def grouped_matmul_ref(x, w):

@@ -1,5 +1,6 @@
-"""Unified model API (port of ``repro.models.api``): the dense, MoE,
-``ssm`` (xLSTM) and ``hybrid`` (Zamba2) branches.
+"""Unified model API (port of ``repro.models.api``): every family of the
+reference, dense, MoE and ``vlm`` (the transformer), ``ssm`` (xLSTM),
+``hybrid`` (Zamba2) and ``audio`` (Whisper).
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` whose members are
 plain functions over a param dict, bound to one device.  ``device=None``
@@ -15,6 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models import xlstm as X
 from repro_torch.models import zamba2 as Z
 from repro_torch.models.config import ModelConfig
@@ -39,7 +41,7 @@ class Model:
     forward: Callable        # (params, batch) -> logits
     prefill: Callable        # (params, batch) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch) -> (logits, cache), cache in place
-    init_cache: Callable     # (batch_size, max_len) -> cache
+    init_cache: Callable     # (batch_size, max_len, window=None) -> cache
     #: the batch (slot) axis of the cache leaves: one int for every leaf,
     #: or a tree shaped like the cache with one int per leaf.  (L, B, S,
     #: Hkv, hd) KV caches use 1, xLSTM and Mamba2 states (G, M, B, ...) 2
@@ -58,10 +60,8 @@ def tree_map(fn, tree, *rest):
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and hybrid only)"
-        )
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def generator(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -74,7 +74,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             forward=lambda p, b: X.xlstm_forward(p, b, cfg)[0],
             prefill=lambda p, b: X.xlstm_forward(p, b, cfg, return_cache=True),
             decode_step=lambda p, c, b: X.xlstm_decode_step(p, c, b, cfg),
-            init_cache=lambda bs, ml: X.xlstm_init_cache(cfg, bs, ml, device=dev),
+            init_cache=lambda bs, ml, window=None: X.xlstm_init_cache(cfg, bs, ml, device=dev),
             cache_batch_axis=2,
         )
     if cfg.family == "hybrid":  # Zamba2
@@ -85,10 +85,24 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             forward=lambda p, b: Z.zamba2_forward(p, b, cfg)[0],
             prefill=lambda p, b: Z.zamba2_forward(p, b, cfg, return_cache=True),
             decode_step=lambda p, c, b: Z.zamba2_decode_step(p, c, b, cfg),
-            init_cache=lambda bs, ml: Z.zamba2_init_cache(cfg, bs, ml, device=dev),
+            init_cache=lambda bs, ml, window=None: Z.zamba2_init_cache(
+                cfg, bs, ml, device=dev, window=window),
             # Mamba2 states (G, per, B, ...), KV caches (G, B, S, Hkv, hd)
             cache_batch_axis={"mamba": (2, 2), "attn_kv": {"k": 1, "v": 1}},
         )
+    if cfg.family == "audio":  # Whisper: prefill returns {"self", "cross"}
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: W.whisper_init(cfg, device=dev, generator=generator(seed)),
+            forward=lambda p, b: W.whisper_forward(p, b, cfg)[0],
+            prefill=lambda p, b: W.whisper_forward(p, b, cfg, return_cache=True),
+            decode_step=lambda p, c, b: W.whisper_decode_step(p, c, b, cfg),
+            init_cache=lambda bs, ml, window=None: W.whisper_init_cache(cfg, bs, ml, device=dev),
+            cache_batch_axis=1,
+        )
+    # dense, moe, vlm: the reference's decode_step passes no window; a
+    # windowed dense decode is lm_decode_step(window=) over init_cache(window=)
     return Model(
         cfg=cfg,
         device=dev,
@@ -96,6 +110,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         forward=lambda p, b: T.lm_forward(p, b, cfg)[0],
         prefill=lambda p, b: T.lm_forward(p, b, cfg, return_cache=True),
         decode_step=lambda p, c, b: T.lm_decode_step(p, c, b, cfg),
-        init_cache=lambda bs, ml: T.lm_init_cache(cfg, bs, ml, device=dev),
+        init_cache=lambda bs, ml, window=None: T.lm_init_cache(cfg, bs, ml, device=dev,
+                                                                window=window),
         cache_batch_axis=1,
     )

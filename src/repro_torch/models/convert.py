@@ -26,6 +26,9 @@ FLOAT32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D"})
 #: Mamba2 SSM state h, by their position in the state tuple
 #: (``repro/models/xlstm.py:287-292, :400-406``, ``mamba2.py:220``)
 FLOAT32_CACHE_LEAVES = {"mlstm": (0, 1, 2), "slstm": (1, 2, 3), "mamba": (0,)}
+#: the int8 ``kv_quant`` cache's scales, float32 (``transformer.py:195-202``);
+#: its int8 ``k``/``v`` stay int8
+FLOAT32_CACHE_NAMES = frozenset({"k_scale", "v_scale"})
 
 
 def _leaf(a, device, dtype):
@@ -37,12 +40,14 @@ def _leaf(a, device, dtype):
 
 def _convert(tree, device, dtype, keep32, path=()):
     """Convert every leaf of nested dicts and tuples; ``keep32(path)`` says
-    which leaves stay float32."""
+    which leaves stay float32, and int8 leaves stay int8."""
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, keep32, (*path, k)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_convert(v, device, dtype, keep32, (*path, i))
                           for i, v in enumerate(tree))
+    if tree.dtype == np.int8:
+        return _leaf(tree, device, torch.int8)
     return _leaf(tree, device, torch.float32 if keep32(path) else dtype)
 
 
@@ -55,11 +60,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
-    """Reference cache (numpy leaves: a KV cache ``{k, v}``, the xLSTM
-    states or the Zamba2 ``{mamba, attn_kv}`` cache) -> port cache on ``device``, in ``dtype`` (default the compute
-    dtype ``cfg.dtype``); the leaves the reference keeps in float32
-    (``FLOAT32_CACHE_LEAVES``) stay float32."""
+    """Reference cache (numpy leaves: a KV cache ``{k, v}``, an int8 one
+    ``{k, v, k_scale, v_scale}``, the xLSTM states, the Zamba2 ``{mamba,
+    attn_kv}`` or the Whisper ``{self, cross}`` cache) -> port cache on
+    ``device``, in ``dtype`` (default the compute dtype ``cfg.dtype``); the
+    leaves the reference keeps in float32 (``FLOAT32_CACHE_LEAVES``,
+    ``FLOAT32_CACHE_NAMES``) stay float32 and int8 leaves stay int8."""
     def keep32(path):
-        return len(path) == 2 and path[1] in FLOAT32_CACHE_LEAVES.get(path[0], ())
+        return (path[-1] in FLOAT32_CACHE_NAMES
+                or len(path) == 2 and path[1] in FLOAT32_CACHE_LEAVES.get(path[0], ()))
 
     return _convert(tree, torch.device(device), dtype or torch_dtype(cfg.dtype), keep32)

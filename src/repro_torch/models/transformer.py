@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM, dense and MoE families (port of
+"""Decoder-only transformer LM, dense, MoE and VLM families (port of
 ``repro.models.transformer``).
 
 Parameters keep the reference's layer-stacked layout (a leading
 ``num_layers`` dim on every layer leaf), so a reference param tree converts
 leaf by leaf with no transposes.  The stack is consumed by a Python loop
-(the reference uses ``lax.scan``); PyTorch runs it eagerly.  VLM prefixes,
-windows and the int8 cache are not ported yet.
+(the reference uses ``lax.scan``); PyTorch runs it eagerly.  A VLM's patch
+embeddings pass through ``patch_proj`` into a prefix before the token
+embeddings; ``window`` selects sliding-window attention over a ring cache;
+``cfg.kv_quant`` an int8 cache with one float32 scale per vector.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _layer(tree, i: int):
 
 
 def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
-                cache_pos=None, causal=True):
+                cache_pos=None, causal=True, window=None):
     """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)), the MLP being the
     MoE layer when ``cfg.moe`` is set.  Returns (x, new_cache).  (The
     reference also returns the MoE aux loss; ``moe_apply`` returns it, and
@@ -39,7 +41,7 @@ def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     attn_out, new_cache = L.attention_apply(
         p["attn"], h, dtype=dt,
         rope_theta=cfg.rope_theta, positions=positions, causal=causal,
-        cache=cache, cache_pos=cache_pos,
+        window=window, cache=cache, cache_pos=cache_pos,
     )
     x = x + attn_out
     h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
@@ -74,6 +76,8 @@ def lm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     }
     if not cfg.tie_embeddings:
         p["head"] = {"w": normal_(torch.empty((d, V), dtype=dt, device=device), d**-0.5)}
+    if cfg.vlm is not None:
+        p["patch_proj"] = {"w": normal_(torch.empty((d, d), dtype=dt, device=device), d**-0.5)}
     return p
 
 
@@ -151,19 +155,31 @@ def _logits(p, x, cfg: ModelConfig, dt):
     return L.unembed(head, x, dt)
 
 
-def lm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
-    """Train/prefill forward: full-sequence causal attention.
+def _embed_inputs(p, batch, cfg: ModelConfig, dt):
+    """tokens (+ patch_embeds for VLM) -> (B, S, d) embeddings."""
+    x = L.embed(p["embed"], batch["tokens"], dt)
+    if cfg.vlm is not None:
+        patches = L.dense(p["patch_proj"], batch["patch_embeds"].to(dt), dt)
+        x = torch.cat([patches, x], dim=1)   # vision prefix
+    return x
+
+
+def lm_forward(p, batch, cfg: ModelConfig, *, window=None, return_cache=False):
+    """Train/prefill forward: full-sequence causal attention (keys j > i -
+    window too when ``window``), over the vision prefix and the tokens for
+    a VLM.
 
     Returns (logits, caches); ``caches`` are stacked (L, B, S, Hkv, hd)
     ``{k, v}`` when ``return_cache`` (prefill), else None.  (The reference
     also returns the mean MoE aux loss, which serving does not read.)
     """
     dt = torch_dtype(cfg.dtype)
-    x = L.embed(p["embed"], batch["tokens"], dt)
+    x = _embed_inputs(p, batch, cfg, dt)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
     for i in range(cfg.num_layers):
-        x, cache = layer_apply(_layer(p["layers"], i), x, cfg, positions=positions)
+        x, cache = layer_apply(_layer(p["layers"], i), x, cfg, positions=positions,
+                               window=window)
         if return_cache:
             caches.append(cache)
     stacked = None
@@ -172,20 +188,29 @@ def lm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
     return _logits(p, x, cfg, dt), stacked
 
 
-def lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device):
-    """Linear KV cache ``{k, v}`` of shape (L, B, max_len, Hkv, hd) in the
-    compute dtype, zero-filled."""
+def lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device,
+                  window=None):
+    """Zero-filled KV cache ``{k, v}`` of shape (L, B, S, Hkv, hd) in the
+    compute dtype, S = max_len, or a ring of S = min(max_len, window) slots
+    when windowed.  With ``cfg.kv_quant``: int8 ``k``/``v`` and float32
+    ``k_scale``/``v_scale`` (L, B, S, Hkv, 1)."""
+    S = min(max_len, window) if window is not None else max_len
+    shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.kv_quant:
-        raise NotImplementedError("the int8 kv_quant cache is not ported yet")
-    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device)}
     dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def lm_decode_step(p, cache, batch, cfg: ModelConfig):
-    """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``.
+def lm_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
+    """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``;
+    ``window`` for a ring cache (:func:`lm_init_cache` with the same
+    window).
 
     The new token's K/V are written into ``cache`` in place (the reference
     donates the cache buffers to the same effect).  Returns
@@ -201,6 +226,6 @@ def lm_decode_step(p, cache, batch, cfg: ModelConfig):
     for i in range(cfg.num_layers):
         x, _ = layer_apply(
             _layer(p["layers"], i), x, cfg, positions=positions,
-            cache=_layer(cache, i), cache_pos=pos,
+            cache=_layer(cache, i), cache_pos=pos, window=window,
         )
     return _logits(p, x, cfg, dt), cache

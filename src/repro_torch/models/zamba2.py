@@ -15,9 +15,10 @@ Differences from the reference, all forced by PyTorch or chosen for memory:
   float32 h it is given, the attention writes its one new position, and
   the conv states are copied into their lanes.
 
-The sliding-window (ring-buffer) attention of the long-context cells
-(``cfg.ssm.attn_window``) and the sharding hooks are not ported yet; a
-config with a window raises ``NotImplementedError``.
+For the long-context cells the shared block runs sliding-window attention
+(``window``, default ``cfg.ssm.attn_window``) over a ring cache of
+min(max_len, window) slots, as in the reference.  The sharding hooks are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,9 +35,6 @@ from repro_torch.models.xlstm import _at, _stack_states
 
 
 def _group_counts(cfg: ModelConfig):
-    if cfg.ssm.attn_window is not None:
-        raise NotImplementedError("zamba2's windowed (ring-buffer) shared attention is "
-                                  "not ported yet")
     per = cfg.ssm.attn_every
     if cfg.num_layers % per:
         raise ValueError(f"num_layers {cfg.num_layers} is no multiple of attn_every {per}")
@@ -65,12 +63,14 @@ def zamba2_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     }
 
 
-def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
-    """Train/prefill forward.  Returns (logits, cache): the cache is
+def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False, window=None):
+    """Train/prefill forward, the shared block windowed by ``window``
+    (default ``cfg.ssm.attn_window``).  Returns (logits, cache): the cache is
     ``{"mamba": (h, conv), "attn_kv": {"k", "v"}}`` with Mamba2 leaves
     ``(G, per, B, ...)`` and KV leaves ``(G, B, S, Hkv, hd)`` when
     ``return_cache``, else None."""
     G, per = _group_counts(cfg)
+    win = window if window is not None else cfg.ssm.attn_window
     dt = T.torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -80,7 +80,7 @@ def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
         for j in range(per):
             x, st = mamba2_block_apply(_at(p["mamba"], g, j), x, cfg)
             mst[-1].append(st)
-        x, kv = T.layer_apply(p["shared_attn"], x, cfg, positions=positions)
+        x, kv = T.layer_apply(p["shared_attn"], x, cfg, positions=positions, window=win)
         kvs.append(kv)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(p["head"], x, dt)
@@ -90,11 +90,14 @@ def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
                     "attn_kv": {n: torch.stack([kv[n] for kv in kvs]) for n in ("k", "v")}}
 
 
-def zamba2_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
-    """Zero Mamba2 states ``(G, per, B, ...)`` and a linear KV cache
-    ``(G, B, max_len, Hkv, hd)`` per shared-block application."""
+def zamba2_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, window=None):
+    """Zero Mamba2 states ``(G, per, B, ...)`` and a KV cache ``(G, B, S,
+    Hkv, hd)`` per shared-block application: S = max_len, or a ring of S =
+    min(max_len, window) slots (``window`` default ``cfg.ssm.attn_window``)."""
     G, per = _group_counts(cfg)
-    shape = (G, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    win = window if window is not None else cfg.ssm.attn_window
+    S = min(max_len, win) if win is not None else max_len
+    shape = (G, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = T.torch_dtype(cfg.dtype)
     mst = tuple(a.expand(G, per, *a.shape).clone()
                 for a in mamba2_state_init(cfg, batch, device=device))
@@ -102,11 +105,13 @@ def zamba2_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
             "attn_kv": {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}}
 
 
-def zamba2_decode_step(p, cache, batch, cfg: ModelConfig):
-    """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``.
-    Every leaf of ``cache`` is updated in place.  Returns (logits (B, 1, V),
-    cache)."""
+def zamba2_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
+    """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``,
+    the shared block windowed by ``window`` (default
+    ``cfg.ssm.attn_window``) over a ring cache.  Every leaf of ``cache`` is
+    updated in place.  Returns (logits (B, 1, V), cache)."""
     G, per = _group_counts(cfg)
+    win = window if window is not None else cfg.ssm.attn_window
     dt = T.torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
     pos = torch.as_tensor(batch["pos"], device=x.device)
@@ -122,6 +127,6 @@ def zamba2_decode_step(p, cache, batch, cfg: ModelConfig):
                 if src is not dst:
                     dst.copy_(src)
         x, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions,
-                             cache=T._layer(cache["attn_kv"], g), cache_pos=pos)
+                             cache=T._layer(cache["attn_kv"], g), cache_pos=pos, window=win)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return L.unembed(p["head"], x, dt), cache

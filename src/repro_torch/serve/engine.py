@@ -26,6 +26,13 @@ Differences from the reference, all forced by PyTorch:
   the two streams differ, so only greedy transcripts match the reference;
 * ``step_many(k)`` is a loop of k dispatches whose tokens stay on the
   device and cross to the host once at the end of the block.
+
+What the reference engine cannot serve is refused with a ``ValueError``
+(serving it would be a feature the reference lacks): a prompt longer than a
+windowed model's ring cache (the reference's ``dynamic_update_slice`` of
+the prompt's K/V fails), a ``kv_quant`` model (its prefill cache has no
+scale leaves to insert) and the ``audio``/``vlm`` families (the reference
+admits tokens only).
 """
 
 from __future__ import annotations
@@ -97,6 +104,17 @@ def build_serve_table(model, params, *, generator: torch.Generator):
     return table
 
 
+def _check_fits(full, part, axis: int, t: int) -> None:
+    """Raise if a prefill leaf is longer than its cache leaf on an axis
+    other than the batch axis: a prompt longer than a windowed model's ring
+    of min(max_len, window) positions."""
+    for a, (n_full, n_part) in enumerate(zip(full.shape, part.shape)):
+        if a != axis and n_part > n_full:
+            raise ValueError(f"prompt of {t} tokens is longer than the cache's ring of "
+                             f"{n_full} positions (a windowed model keeps "
+                             f"min(max_len, window))")
+
+
 def _insert(full, part, axis: int, slot: int) -> None:
     """Write a one-sequence prefill leaf into lane ``slot`` of the batch
     cache leaf, in place, at offset 0 on every other axis (the reference's
@@ -118,6 +136,12 @@ class ServingEngine:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
+        if model.cfg.family in ("audio", "vlm"):
+            raise ValueError(f"the serving engine admits token prompts only; "
+                             f"{model.cfg.family!r} models need frames or patches")
+        if model.cfg.kv_quant:
+            raise ValueError("the serving engine does not take a kv_quant model: its "
+                             "prefill cache holds no int8 scales to insert")
         self.model = model
         self.params = params
         self.B = num_slots
@@ -156,6 +180,8 @@ class ServingEngine:
         t, axes = prompt.shape[0], self.model.cache_batch_axis
         if isinstance(axes, int):
             axes = tree_map(lambda _, axis=axes: axis, pcache)
+        tree_map(lambda full, part, axis: _check_fits(full, part, axis, t),
+                 self.payload["cache"], pcache, axes)
         tree_map(lambda full, part, axis: _insert(full, part, axis, slot),
                  self.payload["cache"], pcache, axes)
         first = logits[0, -1, :].argmax()

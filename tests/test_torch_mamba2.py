@@ -326,12 +326,15 @@ def test_port_init_builds_reference_tree(param_dtype):
 
 
 def test_attention_window_not_ported():
+    """The windowed shared block is ported now (``test_torch_window.py``
+    holds it against the reference): a config with ``attn_window`` builds,
+    and its KV cache is a ring of min(max_len, window) slots."""
     cfg = get_reduced(ARCH)
     windowed = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, attn_window=8))
-    with pytest.raises(NotImplementedError, match="window"):
-        Z.zamba2_init_cache(windowed, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        build_model(windowed, device="cpu").init(seed=0)
+    assert Z.zamba2_init_cache(windowed, 1, 32, device="cpu")["attn_kv"]["k"].shape[2] == 8
+    assert Z.zamba2_init_cache(windowed, 1, 5, device="cpu")["attn_kv"]["k"].shape[2] == 5
+    p = build_model(windowed, device="cpu").init(seed=0)
+    assert torch.equal(p["mamba"]["w_in"], build_model(cfg, device="cpu").init(seed=0)["mamba"]["w_in"])
 
 
 # -- the serving engine ----------------------------------------------------------

@@ -3,6 +3,7 @@ its entry points run on the card unless asked for the CPU, and its kernel
 wrappers never hand a non-CPU request to the plain version."""
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -75,8 +76,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     params = model.init(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, params, num_slots=1, max_len=8)
-    with pytest.raises(NotImplementedError):
-        build_model(get_reduced("whisper-large-v3"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):   # repro/models/api.py:212
+        build_model(dataclasses.replace(get_reduced("whisper-large-v3"), family="speech"),
+                    device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_reduced("xlstm-1.3b"))
 
@@ -88,7 +90,8 @@ def _launch_counts():
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import mlstm
 
-    return dec.launches, fla.launches, gmm.launches, mlstm.launches, ssd.launches
+    return (dec.launches, dec.launches_q8, fla.launches, fla.launches_window, gmm.launches,
+            mlstm.launches, ssd.launches)
 
 
 def _call(kernel, device):
@@ -104,9 +107,19 @@ def _call(kernel, device):
         q, kv = t(2, 1, 8, 32), t(2, 16, 2, 32)
         return ops.decode_attention_bhsd(q, kv, kv, torch.tensor([3, 16], dtype=torch.int32,
                                                                  device=device))
+    if kernel == "decode_attention_q8":
+        q = t(2, 1, 8, 32)
+        kv = torch.zeros(2, 16, 2, 32, dtype=torch.int8, device=device)
+        scale = t(2, 16, 2, 1).abs()
+        return ops.decode_attention_q8_bhsd(q, kv, kv, scale, scale,
+                                            torch.tensor([3, 16], dtype=torch.int32,
+                                                         device=device))
     if kernel == "flash_attention":
         q, kv = t(2, 16, 8, 32), t(2, 16, 2, 32)
         return ops.flash_attention_bhsd(q, kv, kv)
+    if kernel == "flash_attention_window":
+        q, kv = t(2, 16, 8, 32), t(2, 16, 2, 32)
+        return ops.flash_attention_bhsd(q, kv, kv, window=5)
     if kernel == "mlstm":
         qk, g = t(2, 37, 2, 16), t(2, 37, 2)
         return ops.mlstm_chunked(qk, qk, t(2, 37, 2, 32), g, g, chunk=8)[0]
@@ -117,8 +130,9 @@ def _call(kernel, device):
     return ops.grouped_matmul(t(1, 4, 8, 32), t(4, 32, 16))
 
 
-KERNELS = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm", "mamba2_ssd"]
-KERNEL_IDS = ["decode", "flash", "grouped_matmul", "mlstm", "ssd"]
+KERNELS = ["decode_attention", "decode_attention_q8", "flash_attention",
+           "flash_attention_window", "grouped_matmul", "mlstm", "mamba2_ssd"]
+KERNEL_IDS = ["decode", "decode_q8", "flash", "flash_window", "grouped_matmul", "mlstm", "ssd"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
@@ -132,9 +146,10 @@ def test_kernel_wrappers_raise_for_non_cpu_requests(kernel):
     with pytest.raises(ValueError, match="CUDA"):
         _call(kernel, "meta")
     assert _launch_counts() == before
+    source = kernel.removesuffix("_q8").removesuffix("_window")
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc"):
-            _build.build([kernel])
+            _build.build([source])
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
@@ -147,6 +162,7 @@ def test_cpu_wrappers_count_no_launches(kernel):
 
 KERNEL_MODULES = ["decode_attention", "flash_attention", "grouped_matmul", "mlstm",
                   "mamba2_ssd"]
+MODULE_IDS = ["decode", "flash", "grouped_matmul", "mlstm", "ssd"]
 
 
 class _YieldingCount(int):
@@ -159,7 +175,7 @@ class _YieldingCount(int):
         return _YieldingCount(int(self) + other)
 
 
-@pytest.mark.parametrize("kernel", KERNEL_MODULES, ids=KERNEL_IDS)
+@pytest.mark.parametrize("kernel", KERNEL_MODULES, ids=MODULE_IDS)
 def test_launch_counters_stay_exact_under_threads(kernel):
     """Serving replicas on thread workers launch kernels at once: each
     wrapper's launch is counted under a lock (``_build.counted``), so
@@ -191,3 +207,35 @@ def test_launch_counters_stay_exact_under_threads(kernel):
     finally:
         module.launches = before
     assert counted == threads * calls
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "internlm2-20b", "qwen1.5-4b", "llama3-405b",
+                                  "nemotron-4-340b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "internvl2-76b", "zamba2-2.7b", "whisper-large-v3"])
+def test_build_model_builds_every_config(arch):
+    """Every family of ``repro_torch/configs`` builds: the full config's
+    model (no params drawn) and the reduced one through init, prefill and
+    one decode step on the CPU."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.models.api import build_model
+
+    assert arch in ARCH_IDS
+    assert build_model(get_config(arch), device="cpu").cfg.name == arch
+    cfg = get_reduced(arch)
+    model = build_model(cfg, device="cpu")
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 5)))}
+    if cfg.vlm is not None:
+        batch["patch_embeds"] = torch.randn(2, cfg.vlm.num_patches, cfg.d_model)
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(2, cfg.encdec.encoder_frames, cfg.d_model)
+    logits, pre = model.prefill(params, batch)
+    n = 5 + (cfg.vlm.num_patches if cfg.vlm is not None else 0)
+    assert logits.shape == (2, n, cfg.vocab_size) and torch.isfinite(logits).all()
+    cache = model.init_cache(2, n + 2)
+    if cfg.encdec is not None:
+        cache["cross"] = pre["cross"]
+    lg, _ = model.decode_step(params, cache, {"tokens": batch["tokens"][:, :1],
+                                              "pos": torch.tensor(n)})
+    assert lg.shape == (2, 1, cfg.vocab_size) and torch.isfinite(lg).all()
