@@ -26,11 +26,13 @@ Phases, in order; any failure raises and exits non-zero:
    an int8 cache with float32 scales (internlm2-20b's shape, ragged and
    whole, beside the bf16 kernel and SDPA on the dequantized cache), with
    whisper-large-v3's encoder and cross-attention flash (Sq 448, Skv 1500)
-   and its cross-attention decode (1500 frames);
+   and its cross-attention decode (1500 frames); both attention kernels at
+   nemotron-4-340b's head_dim 192, float32 and bfloat16, timed too;
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
    width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
    zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
-   applications), float32 weights (xlstm-1.3b and zamba2-2.7b also in
+   applications), nemotron-4-340b (head_dim 192) cut to 1 layer, float32
+   weights (xlstm-1.3b and zamba2-2.7b also in
    bfloat16, the tensor-core routes of their mLSTM and SSD kernels),
    prefill + 4 decode steps with the kernels on the card against the plain
    path on the CPU (MoE routing near-ties between the two are reported, not
@@ -80,9 +82,28 @@ Phases, in order; any failure raises and exits non-zero:
    ``(a + b).cpu()`` and hold a CUDA tensor put into a buffer, and the shm
    worker answers again after a kill and a respawn; every worker not killed
    on purpose leaves on the shutdown message with exit code 0;
-8. print the kernel line, one serving line per model, the phase 5b line,
-   the cluster serving line and the process-fabrics line (JSON);
-9. last line: ``{"ok": true, "device": {...}}``.
+8. training on the card: 8a holds the flash-attention backward kernel
+   against autograd through the plain attention (internlm2-20b's,
+   zamba2's d 80, whisper's encoder and cross, a window, a ragged length
+   and d 192, float32 and bfloat16; repeated calls bit for bit) and the
+   grouped-matmul backward (olmoe's prefill, a ragged capacity) against
+   its plain version, times them beside bound, plain and the PyTorch
+   yardstick, and checks that the mLSTM, SSD and decode ops raise under
+   grad; 8b holds one step's gradients of internlm2-20b (2 layers,
+   float32, B 1 x S 128) card against CPU, then trains internlm2-20b and
+   8c olmoe-1b-7b at full width (2 layers, float32 params, bf16 compute,
+   full remat, B 4 x S 2048, 12 steps at lr 1e-4) through
+   ``Trainer.register_handlers`` and ``train/run_steps`` on a local
+   ``OffloadDomain``: every step-1 gradient
+   leaf finite and non-zero, the loss falling, exact flash forward,
+   backward and grouped-matmul launches, step times, tokens/s, model-FLOPs
+   share, peak memory and a profiled step; 8d restarts a narrow
+   internlm2-shaped trainer from its checkpoint on the card and holds the
+   next 3 losses to the uninterrupted run's within 1e-6;
+9. print the kernel line, one serving line per model, the phase 5b line,
+   the cluster serving line, the process-fabrics line and the train line
+   (JSON);
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 """
@@ -153,7 +174,12 @@ MODEL_CHECKS = {
     "internlm2-20b": (2, 200, [200, 150]),
     "olmoe-1b-7b": (2, 128, [128, 100]),
     "qwen2-moe-a2.7b": (2, 128, [128, 100]),
+    "nemotron-4-340b": (2, 64, [64, 40]),   # head_dim 192 in both attention kernels
 }
+# layers of a phase 4 check (2 unless named): one float32 nemotron-4-340b
+# layer is 13.8 GB and its embedding and head 18.9 GB each, 51.5 GB on the
+# card and again on the host (96 GiB)
+MODEL_CHECK_LAYERS = {"nemotron-4-340b": 1}
 SERVED = ("internlm2-20b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b")
 # phase 6: internlm2-20b through the port's ClusterServingEngine (thread
 # workers x slots each, against one engine of as many slots)
@@ -232,6 +258,13 @@ KERNELS = {
         "replaces": "src/repro/kernels/decode_attention.py:32",
         "variant": "int8 K/V with float32 per-vector scales (the reference's kv_quant cache)",
     },
+    # the gradient of the flash kernel: the Pallas kernel has none (the
+    # reference differentiates its plain attention through XLA)
+    "flash_attention_backward": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:32",
+        "variant": "backward (dq, dk, dv) of the flash kernel, for training on the card",
+    },
     "grouped_matmul": {
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:27",
@@ -264,6 +297,7 @@ def _counter_modules():
     return {"decode_attention": (dec, "launches"), "decode_attention_q8": (dec, "launches_q8"),
             "flash_attention": (fla, "launches"),
             "flash_attention_window": (fla, "launches_window"),
+            "flash_attention_backward": (fla, "launches_backward"),
             "grouped_matmul": (gmm, "launches"), "mlstm": (mlstm, "launches"),
             "mamba2_ssd": (ssd, "launches")}
 
@@ -546,11 +580,12 @@ MLSTM_PASSES = ("gates_kernel", "state_tc", "output_tc")
 SSD_PASSES = ("chunk_state_tc", "combine_states", "output_tc")
 
 
-def within(torch, got, want, tol) -> tuple[float, bool]:
-    """(max |got - want|, whether every element is within (atol, rtol))."""
+def within(torch, got, want, tol, scale=1.0) -> tuple[float, bool]:
+    """(max |got - want|, whether every element is within atol x scale +
+    rtol x |want|)."""
     atol, rtol = tol
     diff = (got.float() - want.float()).abs()
-    return diff.max().item(), bool((diff <= atol + rtol * want.float().abs()).all())
+    return diff.max().item(), bool((diff <= atol * scale + rtol * want.float().abs()).all())
 
 
 def check_kernels(torch) -> dict:
@@ -587,6 +622,8 @@ def check_kernels(torch) -> dict:
         check(dec.num_splits(4 * Hkv) == splits, f"no B * Hkv gives {splits} splits")
         decode_cases += [(4, Hkv, 4, 1024, 128, dt, [1, 37, 1024 // splits - 1, 5000])
                          for dt in ("bfloat16", "float32")]
+    # nemotron-4-340b's decode, head_dim 192 (96 heads over 8 kv heads)
+    decode_cases += [(8, 8, 12, 2048, 192, dt, full_lengths) for dt in ("bfloat16", "float32")]
     # phase 6's replica shape (internlm2-20b, 4 slots): 4 splits at qpk 6,
     # lengths over its range (prompt 64..448 + 64 new tokens) and beyond
     decode_cases += [(4, 8, 6, 2048, 128, dt, lens) for dt in ("bfloat16", "float32")
@@ -634,7 +671,9 @@ def check_kernels(torch) -> dict:
         (1, 4, 4, 96, 32, "bfloat16", False),
         (1, 4, 4, 96, 32, "bfloat16", True),
         (1, 32, 32, 333, 80, "bfloat16", False),
-    ]
+    ] + [  # nemotron-4-340b's prefill, head_dim 192; a ragged length, non-causal
+        (1, 96, 8, 1024, 192, dt, True) for dt in ("bfloat16", "float32")
+    ] + [(1, 96, 8, 333, 192, "bfloat16", True), (1, 16, 8, 200, 192, "float32", False)]
     for i, (B, H, Hkv, S, d, dt, causal) in enumerate(flash_cases):
         _, got, want = flash_case(torch, B, H, Hkv, S, d, dt, causal, seed=100 + i)
         err = max_err(torch, got, want)
@@ -732,6 +771,29 @@ def check_kernels(torch) -> dict:
         )
         records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
 
+    # nemotron-4-340b's decode at head_dim 192 (qpk 12), whole cache valid,
+    # in both dtypes: the d 192 build is new, and float32 runs on the CUDA cores
+    for key, dt in (("decode_attention_d192", "bfloat16"), ("decode_attention_d192_f32",
+                                                              "float32")):
+        B, Hkv, qpk, S, d = 8, 8, 12, 2048, 192
+        (q, k, v, lens), got, want = decode_case(torch, B, Hkv, qpk, S, d, dt, [S] * B, seed=7)
+        es = q.element_size()
+        nbytes = 2 * q.numel() * es + 2 * int(lens.sum()) * Hkv * d * es + lens.numel() * 4
+        flops = 4 * int(lens.sum()) * Hkv * qpk * d
+        q4, kt, vt = q.reshape(B, Hkv, qpk, d), k.transpose(1, 2), v.transpose(1, 2)
+        qs = q.transpose(1, 2)
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: ops.decode_attention_bhsd(q, k, v, lens), 50),
+            plain_ms=time_ms(torch, lambda: decode_attention_plain(q4, kt, vt, lens), 20),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kt, vt, enable_gqa=True), 50),
+            shape=f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt}, lengths={S}, "
+                  f"splits={dec.num_splits(B * Hkv)}",
+            library="sdpa",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, dt)
+
     # flash at the largest admission prefill, one prompt of 1024 tokens:
     # internlm2-20b, olmoe-1b-7b, and zamba2-2.7b's shared block at d = 80
     for key, (B, H, Hkv, S, d) in (("flash_attention", (1, 48, 8, 1024, 128)),
@@ -752,6 +814,27 @@ def check_kernels(torch) -> dict:
             library="sdpa",
         )
         records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, "bfloat16")
+
+    # nemotron-4-340b's prefill at head_dim 192, one prompt of 1024 tokens,
+    # in both dtypes
+    for key, dt in (("flash_attention_d192", "bfloat16"), ("flash_attention_d192_f32",
+                                                             "float32")):
+        B, H, Hkv, S, d = 1, 96, 8, 1024, 192
+        (q, k, v), got, want = flash_case(torch, B, H, Hkv, S, d, dt, True, seed=8)
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * B * H * d * (S * (S + 1) // 2)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        records[key] = dict(
+            max_abs_err=max_err(torch, got, want),
+            ms=time_ms(torch, lambda: ops.flash_attention_bhsd(q, k, v, causal=True), 20),
+            plain_ms=time_ms(torch, lambda: flash_attention_heads_plain(qh, kh, vh, causal=True),
+                             5),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+            shape=f"B={B} H={H} Hkv={Hkv} S={S} d={d} {dt} causal",
+            library="sdpa",
+        )
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nbytes, flops, dt)
 
     # the window variant at zamba2's shape, S 8192 with W 4096 (the
     # long-context cell's window) and S 1024 with W 256, each beside the
@@ -1055,7 +1138,8 @@ def routing_diff(calls_card, calls_cpu, k, T):
 
 
 def check_model(torch, arch: str) -> None:
-    """Phase 4: one config at full width cut to 2 layers, float32, prefill +
+    """Phase 4: one config at full width cut to 2 layers (or
+    ``MODEL_CHECK_LAYERS``), float32, prefill +
     4 per-slot decode steps on the card against the plain path on the CPU.
     MoE tokens routed differently on the two sides must be near-ties; the
     positions they reach (later positions of the same sequence, and that
@@ -1065,7 +1149,8 @@ def check_model(torch, arch: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products on both sides
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+    layers = MODEL_CHECK_LAYERS.get(arch, 2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               param_dtype="float32", dtype="float32")
     k = cfg.moe.top_k if cfg.moe else 0
     gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg, device="cpu")
@@ -1131,7 +1216,8 @@ def check_model(torch, arch: str) -> None:
                    f"experts differ card vs CPU {len(flips)} (margins "
                    f"{[f'{m:.3g}' for m in flip_margins]}), positions left out "
                    f"{int(taint.sum())}, lanes left out of decode {int(lane_taint.sum())}")
-    print(f"model check {arch} (2 layers, float32, prefill {B}x{T} + 4 decode steps): "
+    print(f"model check {arch} ({layers} layers, head_dim {cfg.resolved_head_dim}, float32, "
+          f"prefill {B}x{T} + 4 decode steps): "
           f"max |logits card - CPU| per call {[f'{e:.3g}' for e in errs]}, "
           f"tolerance {LOGIT_ATOL}{routing}")
     check(all(m < NEAR_TIE for m in flip_margins),
@@ -1738,6 +1824,7 @@ def serve(torch, arch: str) -> dict:
     L_ssd = cfg.num_layers if hybrid else 0
     expected = {"decode_attention": L_attn * steps, "decode_attention_q8": 0,
                 "flash_attention": L_attn * admissions, "flash_attention_window": 0,
+                "flash_attention_backward": 0,
                 "grouped_matmul": 3 * L_attn * (steps + admissions) if cfg.moe else 0,
                 "mlstm": L_mlstm * admissions, "mamba2_ssd": L_ssd * admissions}
     check(launches == expected,
@@ -2257,6 +2344,470 @@ def cluster_serve(torch) -> dict:
     return stats
 
 
+# -- phase 8: training on the card --------------------------------------------
+
+# flash backward: max |kernel - plain| <= tol x rms(plain) for each of dq,
+# dk, dv.  The scale is the gradient's RMS, not its largest entry: under a
+# causal mask the gradients pile up at the first keys and queries, and a
+# limit relative to those would pass a kernel wrong on the later tiles.
+# Each limit lies between the largest reading of the sound kernel and what
+# a backward that skips one 64-wide tile reads (`skipped_tile_grads`); the
+# script checks both sides.  On an H100 80GB HBM3 at 700 W the sound kernel
+# read at most 0.294 in bf16 (the size of one bf16 ulp of the largest dv
+# entries) and 2.8e-4 in float32; a skipped tile read at least 1.26 (d 192's
+# dv) in either dtype.
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.5}
+# grouped-matmul backward: |kernel - plain| <= atol s + rtol |plain|, s =
+# max(1, rms(plain)).  dx and dw contract over f and C instead of d, and dw
+# is O(sqrt(C)), not O(1): the float32 sums' rounding grows with their
+# partial sums, i.e. with s (C 1280's dw, s ~ 36, differed by 3.8e-4 on an
+# H100 80GB HBM3 at 700 W), so the forward's limits are in units of s,
+# with a 1e-5 relative term for float32
+GMM_BWD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
+# (what, E, C, d, f, seed): olmoe's serving prefill (C 160), a ragged C, and
+# its training step at B 4 x S 2048 (G 2 x C 640 folded into C 1280):
+# gate/up d 2048 -> f 1024 and down d 1024 -> f 2048
+GMM_BWD_CASES = [
+    ("prefill", 64, 160, 2048, 1024, 760),
+    ("ragged", 64, 37, 2048, 1024, 637),
+    ("train_gate", 64, 1280, 2048, 1024, 1880),
+    ("train_down", 64, 1280, 1024, 2048, 1881),
+]
+# (what, B, H, Hkv, S, Skv, d, causal, window): the attention shapes of the
+# trained and served configs
+FLASH_BWD_CASES = [
+    ("internlm2", 1, 48, 8, 2048, 2048, 128, True, None),
+    ("zamba2_d80", 1, 32, 32, 1024, 1024, 80, True, None),
+    ("whisper_encoder", 8, 20, 20, 1500, 1500, 64, False, None),
+    ("whisper_cross", 1, 20, 20, 448, 1500, 64, False, None),
+    ("window", 1, 32, 32, 1024, 1024, 80, True, 256),
+    ("ragged", 1, 48, 8, 509, 509, 128, True, None),
+    ("d192", 1, 96, 8, 1024, 1024, 192, True, None),
+]
+# gradients card vs CPU, float32, one step at B 1 x S 128: |card - CPU| <=
+# rtol x max |CPU| of each leaf (sums over d 6144 / 16384 in another order,
+# as phase 4's logits; a leaf's small entries carry its large ones' error)
+CARD_CPU_GRAD_RTOL = 1e-3
+# card vs CPU over WITNESS_STEPS trainer steps at the lr phase 8b first
+# used: per-step losses within 1e-3 relative in float32 (step 1 agrees to
+# ~1e-7; Adam's sign-like first steps only amplify the gradients' float32
+# reassociation in the entries nearest zero); the published numerics (bf16
+# compute, full remat) on the card within 5% of the float32 CPU's (bf16
+# keeps 8 bits; a step that doubles the loss is a 100% move)
+WITNESS_OPT = dict(lr=1e-3, warmup_steps=5)
+WITNESS_STEPS = 3
+WITNESS_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# phase 8b/8c: (arch, layers, steps); 8d: a narrow internlm2-shaped config
+TRAINED = (("internlm2-20b", 2, 12), ("olmoe-1b-7b", 2, 12))
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# Adam's first steps move every weight by about lr (m / sqrt(v) = sign g),
+# so each step shifts every logit by ~0.8 d lr through the head: at d 6144
+# lr 1e-3 sent internlm2-20b's loss from 11.8 to 22.6 and never back below
+# 11.8 in 12 steps (card_vs_cpu runs that rate from one set of params on
+# the card and on the CPU, the witness that the rise is not the card's);
+# lr 1e-4 moves a logit ~0.5 a step
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=5)
+RESTART = dict(num_layers=2, d_model=512, num_heads=8, num_kv_heads=2, d_ff=1024)
+
+
+def flash_grads(torch, B, H, Hkv, S, Skv, d, dtype, causal, window, seed):
+    """Model-layout q/k/v and a dO; returns (inputs, kernel grads, plain
+    grads), the grads as (B, heads, S, d) views."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda *shape: torch.randn(*shape, generator=g, device=DEVICE).to(dt).transpose(1, 2)
+    q, k, v, do = mk(B, S, H, d), mk(B, Skv, Hkv, d), mk(B, Skv, Hkv, d), mk(B, S, H, d)
+    o = fa.flash_attention_heads(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_heads_backward(q, k, v, o, do, causal=causal, window=window)
+    want = fa.flash_attention_heads_backward_plain(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    return (q, k, v, o, do), got, want
+
+
+def grad_errs(torch, got, want):
+    """max |got - want| / rms(want) of each pair."""
+    return [max_err(torch, a, b) / b.float().square().mean().sqrt().item()
+            for a, b in zip(got, want)]
+
+
+def skipped_tile_grads(torch, q, k, v, do, want, causal, window):
+    """What a backward that skips one 64-wide tile gives: ``want``'s dq
+    without the middle key tile's share, and its dk and dv without the
+    middle query tile's, the shares taken from the float32 attention of
+    these inputs."""
+    B, H, S, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep, scale = H // Hkv, d ** -0.5
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(rep, 1) for t in (k, v))
+    s = qf @ kf.transpose(-1, -2) * scale
+    if causal:
+        mask = torch.ones(S, Skv, dtype=torch.bool, device=DEVICE).tril()
+        if window:
+            mask = mask.triu(1 - window)
+        s.masked_fill_(~mask, float("-inf"))
+    p = torch.softmax(s, -1)
+    del s
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * (p @ vf)).sum(-1, keepdim=True))
+    tk = slice(Skv // 2 // 64 * 64, Skv // 2 // 64 * 64 + 64)
+    tq = slice(S // 2 // 64 * 64, S // 2 // 64 * 64 + 64)
+    group = lambda t: t.view(B, Hkv, rep, Skv, d).sum(2)
+    parts = (ds[..., tk] @ kf[:, :, tk] * scale,
+             group(ds[:, :, tq].transpose(-1, -2) @ qf[:, :, tq] * scale),
+             group(p[:, :, tq].transpose(-1, -2) @ dof[:, :, tq]))
+    return [w.float() - part for w, part in zip(want, parts)]
+
+
+def check_kernel_grads(torch) -> dict:
+    """Phase 8a: the flash backward and the grouped-matmul backward against
+    their plain versions on the card, timed beside bound, plain and the
+    PyTorch yardstick; the kernels without a backward raise under grad."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ops
+
+    print(f"flash backward tolerance: max |kernel - plain| <= tol x rms(plain), tol "
+          f"{GRAD_TOL} (the forward's: max |kernel - plain| <= {TOL}); a backward that "
+          f"skips one tile must read above it")
+    records = {}
+    for i, (what, B, H, Hkv, S, Skv, d, causal, window) in enumerate(FLASH_BWD_CASES):
+        for dt in ("bfloat16", "float32"):
+            xs, got, want = flash_grads(torch, B, H, Hkv, S, Skv, d, dt, causal, window,
+                                        seed=500 + i)
+            errs = grad_errs(torch, got, want)
+            q, k, v, o, do = xs
+            wrong = grad_errs(torch, skipped_tile_grads(torch, q, k, v, do, want, causal, window),
+                              want)
+            ok = max(errs) <= GRAD_TOL[dt] < min(wrong)
+            print(f"flash_attention_backward {what} B={B} H={H} Hkv={Hkv} S={S} Skv={Skv} "
+                  f"d={d} causal={causal} window={window} {dt}: max err / rms dq, dk, dv "
+                  f"{[f'{e:.3g}' for e in errs]}; one tile skipped "
+                  f"{[f'{e:.3g}' for e in wrong]}; limit {GRAD_TOL[dt]} between them: {ok}")
+            check(max(errs) <= GRAD_TOL[dt], f"flash_attention_backward {what} {dt} disagrees "
+                                             f"with its plain version: {errs}")
+            check(GRAD_TOL[dt] < min(wrong), f"flash_attention_backward {what} {dt}: the limit "
+                                             f"would pass a skipped tile: {wrong}")
+            again = fa.flash_attention_heads_backward(*xs, causal=causal, window=window)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_backward {what} {dt}: a second call differs")
+            if dt == "float32" and what != "internlm2":
+                continue
+            pairs = B * H * (window_pairs(S, window) if causal else S * Skv)
+            flops = 12 * d * pairs   # five 2d products a pair, and the LSE pass's one
+            nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            mask = None
+            if window:
+                mask = torch.ones(S, Skv, dtype=torch.bool, device=DEVICE).tril().triu(1 - window)
+            ref_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+            key = "flash_attention_backward" + ("" if what == "internlm2" else f"_{what}") + (
+                "_f32" if dt == "float32" else "")
+            reps = 3 if B * H * S * Skv > 1e8 else 10
+            rec = dict(
+                max_abs_err=max(max_err(torch, a, b) for a, b in zip(got, want)),
+                ms=time_ms(torch, lambda: fa.flash_attention_heads_backward(
+                    q, k, v, o, do, causal=causal, window=window), reps),
+                plain_ms=time_ms(torch, lambda: fa.flash_attention_heads_backward_plain(
+                    q, k, v, o, do, causal=causal, window=window), 3),
+                library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                    ref_out, leaves, do, retain_graph=True), reps),
+                shape=f"B={B} H={H} Hkv={Hkv} S={S} Skv={Skv} d={d} {dt} causal={causal} "
+                      f"window={window}",
+                library="sdpa backward (autograd.grad of scaled_dot_product_attention)",
+            )
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dt)
+            records[key] = rec
+            del ref_out, leaves
+        release(torch)
+
+    print(f"grouped_matmul backward |kernel - plain| <= atol max(1, rms(plain)) + rtol |plain|, "
+          f"(atol, rtol) = {GMM_BWD_TOL}")
+    for what, E, C, d, f, seed in GMM_BWD_CASES:
+        for dt in ("bfloat16", "float32"):
+            (x, w), _, _ = gmm_case(torch, E, C, d, f, dt, seed=seed)
+            dy = torch.randn(E, C, f, generator=torch.Generator(device=DEVICE).manual_seed(C),
+                             device=DEVICE).to(x.dtype)
+            got = gmm.grouped_matmul_backward(x, w, dy)
+            want = gmm.grouped_matmul_backward_plain(x, w, dy)
+            res = [within(torch, a, b, GMM_BWD_TOL[dt],
+                          scale=max(1.0, b.float().square().mean().sqrt().item()))
+                   for a, b in zip(got, want)]
+            print(f"grouped_matmul backward {what} ({E},{C},{d})x({E},{d},{f}) {dt}: dx route "
+                  f"{GMM_ROUTES[gmm.route(dy, w)]}, dw route "
+                  f"{GMM_ROUTES[gmm.route(x.transpose(1, 2), dy)]}, max_abs_err dx "
+                  f"{res[0][0]:.3g} dw {res[1][0]:.3g}, within: {all(ok for _, ok in res)}")
+            check(all(ok for _, ok in res), f"grouped_matmul backward {what} {dt} disagrees "
+                                            f"with its plain version: {res}")
+            if dt == "bfloat16" and what in ("prefill", "train_gate"):
+                wt = w.transpose(1, 2)
+                rec = dict(
+                    max_abs_err=max(r[0] for r in res),
+                    ms=time_ms(torch, lambda: gmm.grouped_matmul_backward(x, w, dy), 20),
+                    plain_ms=time_ms(torch, lambda: gmm.grouped_matmul_backward_plain(x, w, dy),
+                                     5),
+                    library_ms=time_ms(torch, lambda: (torch.bmm(dy, wt),
+                                                       torch.bmm(x.transpose(1, 2), dy)), 20),
+                    shape=f"dx, dw of (E={E},C={C},d={d})x(E,d,f={f}) bfloat16",
+                    library="torch.bmm x2",
+                )
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    2 * (2 * E * C * d + E * d * f + E * C * f + E * d * f),
+                    2 * 2 * E * C * d * f, "bfloat16")
+                records[f"grouped_matmul_backward_{what}"] = rec
+            del x, w, dy, got, want
+        release(torch)
+
+    # the kernels without a backward raise under grad, before launching
+    before = read_counts()
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    mk = lambda *shape, dt=torch.bfloat16: torch.randn(
+        *shape, generator=g, device=DEVICE).to(dt).requires_grad_(True)
+    lens = torch.tensor([5, 16], dtype=torch.int32, device=DEVICE)
+    kv8 = torch.zeros(2, 16, 2, 64, dtype=torch.int8, device=DEVICE)
+    raising = {
+        "mlstm": lambda: ops.mlstm_chunked(mk(1, 64, 2, 256), mk(1, 64, 2, 256),
+                                           mk(1, 64, 2, 256), mk(1, 64, 2, dt=torch.float32),
+                                           mk(1, 64, 2, dt=torch.float32), chunk=64),
+        "mamba2_ssd": lambda: ops.ssd_chunked(
+            mk(1, 64, 4, 64), mk(1, 64, 4, dt=torch.float32), mk(4, dt=torch.float32),
+            mk(1, 64, 1, 64), mk(1, 64, 1, 64), mk(4, dt=torch.float32), chunk=64),
+        "decode_attention": lambda: ops.decode_attention_bhsd(
+            mk(2, 1, 8, 64), mk(2, 16, 2, 64), mk(2, 16, 2, 64), lens),
+        "decode_attention_q8": lambda: ops.decode_attention_q8_bhsd(
+            mk(2, 1, 8, 64), kv8, kv8, mk(2, 16, 2, 1, dt=torch.float32),
+            mk(2, 16, 2, 1, dt=torch.float32), lens),
+    }
+    for name, call in raising.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"{name} under grad on the card raises: {e}")
+        else:
+            check(False, f"{name} under grad on the card did not raise")
+    check(read_counts() == before, "a kernel without a backward launched under grad")
+    return records
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from named_leaves(t, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def card_vs_cpu(torch, arch: str, steps: int) -> dict:
+    """``arch`` at full width, 2 layers, B 1 x S 128, from one set of params:
+    step 1's float32 gradients on the card against the CPU's; then, when
+    ``steps``, that many trainer steps at WITNESS_OPT on both (float32) and
+    in the published numerics (bf16 compute, full remat) on the card, the
+    per-step losses compared with the float32 CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import as_tensors, batch_for_model
+    from repro_torch.models.api import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import value_and_grad
+
+    published = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(published, param_dtype="float32", dtype="float32", remat="none")
+    opt = adamw.AdamWConfig(**WITNESS_OPT)
+    kw = dict(global_batch=1, seq_len=128, data_seed=3)
+    card = Trainer(cfg, opt, device=DEVICE, **kw)
+    card.init(1)
+    cpu = Trainer(cfg, opt, device="cpu", **kw)
+    cpu.params = tree_map(lambda t: t.detach().to("cpu", copy=True), card.params)
+    cpu.opt_state = adamw.init(cpu.params)
+    batch = batch_for_model(card.data, cfg, 0)
+    loss_g, _, g_gpu = value_and_grad(card.model, card.params, as_tensors(batch, DEVICE))
+    loss_c, _, g_cpu = value_and_grad(cpu.model, cpu.params, as_tensors(batch, "cpu"))
+    worst, worst_leaf = 0.0, ""
+    for (name, a), (_, b) in zip(named_leaves(g_gpu), named_leaves(g_cpu)):
+        rel = max_err(torch, a.cpu(), b) / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    del g_gpu, g_cpu
+    out = {"loss_card": loss_g.item(), "loss_cpu": loss_c.item(), "worst_leaf_rel_err": worst,
+           "worst_leaf": worst_leaf, "tolerance": CARD_CPU_GRAD_RTOL}
+    print(f"train {arch} gradients card vs CPU (2 layers, float32, B 1 x S 128): loss "
+          f"{out['loss_card']:.6f} / {out['loss_cpu']:.6f}, worst leaf {worst_leaf} "
+          f"max |card - CPU| / max |CPU| = {worst:.3g} (tolerance {CARD_CPU_GRAD_RTOL})")
+    check(abs(out["loss_card"] - out["loss_cpu"]) <= 1e-4 * abs(out["loss_cpu"]),
+          f"train {arch}: card and CPU losses differ: {out}")
+    check(worst <= CARD_CPU_GRAD_RTOL, f"train {arch}: card and CPU gradients differ: {out}")
+    if not steps:
+        return out
+    # the published numerics from the same params, before either float32
+    # trainer steps (the optimizer updates params in place)
+    pub = Trainer(published, opt, device=DEVICE, **kw)
+    pub.params = tree_map(lambda t: t.detach().clone(), card.params)
+    pub.opt_state = adamw.init(pub.params)
+    losses = {"bfloat16_card": [pub.run_steps(1)["loss"] for _ in range(steps)]}
+    del pub
+    release(torch)
+    losses["float32_card"] = [card.run_steps(1)["loss"] for _ in range(steps)]
+    losses["float32_cpu"] = [cpu.run_steps(1)["loss"] for _ in range(steps)]
+    ref = losses["float32_cpu"]
+    dev = {run: max(abs(x - y) / abs(y) for x, y in zip(losses[run], ref))
+           for run in ("float32_card", "bfloat16_card")}
+    out.update(witness_opt=WITNESS_OPT, witness_losses=losses, witness_rel_dev=dev,
+               witness_tolerance=WITNESS_RTOL)
+    print(f"train {arch} at AdamW {WITNESS_OPT}, {steps} steps from the same params (2 layers, "
+          f"B 1 x S 128): losses {({k: [round(x, 4) for x in v] for k, v in losses.items()})}; "
+          f"largest relative deviation from the float32 CPU run {dev} (limits float32 "
+          f"{WITNESS_RTOL['float32']}, bf16 {WITNESS_RTOL['bfloat16']})")
+    check(dev["float32_card"] <= WITNESS_RTOL["float32"],
+          f"train {arch}: card and CPU trainers part at lr {WITNESS_OPT['lr']}: {losses}")
+    check(dev["bfloat16_card"] <= WITNESS_RTOL["bfloat16"],
+          f"train {arch}: the bf16 card trainer parts from the float32 CPU's: {losses}")
+    return out
+
+
+def train_full(torch, arch: str, layers: int, steps: int) -> dict:
+    """Phase 8b/8c: ``arch`` at full width cut to ``layers`` layers, as the
+    config publishes it (float32 params, bf16 compute, full remat), trained
+    through ``Trainer.register_handlers`` and ``train/run_steps`` on a local
+    ``OffloadDomain``: every gradient leaf of step 1 finite and non-zero,
+    the loss falling, exact launch counts, step times and a profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.closure import f2f
+    from repro_torch.core.registry import HandlerRegistry
+    from repro_torch.data.pipeline import as_tensors, batch_for_model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.counting import count_params, model_flops
+    from repro_torch.offload.api import OffloadDomain
+    from repro_torch.offload.runtime import register_internal_handlers
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          f"{arch}: not the published numerics")
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, adamw.AdamWConfig(**TRAIN_OPT), global_batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, device=DEVICE)
+    reg = HandlerRegistry()
+    register_internal_handlers(reg)
+    tr.register_handlers(reg)
+    reg.init()
+    tr.init(0)
+    # step 1's gradients, taken apart from the run: a gradient that stopped
+    # at a kernel would be zero (or the leaf would get none)
+    batch = as_tensors(batch_for_model(tr.data, cfg, 0), DEVICE)
+    _, _, grads = value_and_grad(tr.model, tr.params, batch)
+    leaves = list(named_leaves(grads))
+    bad = [n for n, g in leaves if not bool(torch.isfinite(g).all()) or g.abs().max().item() == 0]
+    print(f"train {arch}: step-1 gradients of {len(leaves)} leaves, all finite and non-zero: "
+          f"{not bad}")
+    check(not bad, f"train {arch}: gradient leaves zero or not finite: {bad}")
+    del grads, leaves, batch
+    release(torch)
+
+    times = []
+    step_fn = tr.step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    tr.step_fn = timed_step
+    dom = OffloadDomain.local(2, registry=reg)
+    try:
+        zero_counts()
+        last = dom.sync(1, f2f("train/run_steps", steps, registry=reg), timeout=900)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_window(torch, lambda: dom.sync(
+            1, f2f("train/run_steps", 1, registry=reg), timeout=900), 1, windows=2)
+    finally:
+        dom.shutdown()
+    check(last["step"] == steps, f"train {arch}: ran {last['step']} of {steps} steps")
+    losses = [h["loss"] for h in tr.metrics_history[:steps]]
+    want = {"flash_attention": 2 * layers * steps, "flash_attention_backward": layers * steps,
+            "grouped_matmul": 12 * layers * steps if cfg.moe else 0}
+    print(f"train {arch} ({layers} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}, {steps} steps "
+          f"through train/run_steps, AdamW {TRAIN_OPT}): losses "
+          f"{[round(x, 4) for x in losses]}; launches "
+          f"{counts}, expected {want} (flash forward twice a layer under full remat, its "
+          f"backward once; 3 grouped-matmul forwards a MoE layer, twice, and 2 backward "
+          f"launches each)")
+    check(losses[-1] < losses[0], f"train {arch}: the loss did not fall: {losses}")
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"train {arch}: {name} launched {n} times, not "
+                                      f"{want.get(name, 0)}")
+    times_ms = sorted(1e3 * t for t in times[:steps])
+    p50, p90 = times_ms[len(times_ms) // 2], times_ms[int(0.9 * (len(times_ms) - 1))]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, ShapeCell("train", "train", TRAIN_SEQ, TRAIN_BATCH))
+    stats = {
+        "arch": arch, "layers": layers, "params": count_params(cfg), "steps": steps,
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "adamw": TRAIN_OPT, "losses": losses,
+        "aux_last": tr.metrics_history[steps - 1].get("aux"),
+        "step_ms_p50": p50, "step_ms_p90": p90, "step_samples": len(times_ms),
+        "tokens_per_s": tokens / (p50 / 1e3),
+        "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+        "max_memory_allocated_gb": peak / 1e9, "launches": counts, "profile": prof,
+    }
+    print(f"train {arch}: step p50 {p50:.1f} ms (p90 {p90:.1f}, {len(times_ms)} steps), "
+          f"{stats['tokens_per_s']:.0f} tokens/s, model FLOPs {flops:.3g} a step = "
+          f"{stats['model_flops_share_of_bf16_peak']:.3f} of the bf16 peak, peak memory "
+          f"{stats['max_memory_allocated_gb']:.1f} GB; profiled step: wall "
+          f"{prof['wall_ms_per_call']:.1f} ms, busy {prof['device_busy_ms_per_call']:.1f} ms, "
+          f"idle {prof['device_idle_share']:.3f}")
+    return stats
+
+
+def checkpoint_restart(torch) -> dict:
+    """Phase 8d: a narrow internlm2-shaped config (head_dim 64) trained 6
+    steps and checkpointed; a second trainer restores it, and both run 3
+    more steps, whose losses must agree within 1e-6 (tests/test_train.py's
+    bound)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import Trainer
+
+    cfg = dataclasses.replace(get_config("internlm2-20b"), **RESTART)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(ckpt_dir=str(ckpt), ckpt_every=4, global_batch=4, seq_len=512, device=DEVICE)
+    try:
+        a = Trainer(cfg, adamw.AdamWConfig(lr=1e-3), **kw)
+        a.init(0)
+        a.run_steps(6)
+        a.checkpoint(blocking=True)
+        b = Trainer(cfg, adamw.AdamWConfig(lr=1e-3), **kw)
+        check(b.maybe_restore() and b.step == a.step == 6, "checkpoint restart: no restore")
+        check(all(p.device.type == torch.device(DEVICE).type
+                  for p in (b.params["embed"]["table"], b.opt_state["step"])),
+              "checkpoint restart: restored tensors are not on the card")
+        la = [a.run_steps(1)["loss"] for _ in range(3)]
+        lb = [b.run_steps(1)["loss"] for _ in range(3)]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    diff = max(abs(x - y) for x, y in zip(la, lb))
+    print(f"checkpoint restart (internlm2-shaped, d {cfg.d_model}, head_dim "
+          f"{cfg.resolved_head_dim}, 2 layers): losses after restore {lb}, uninterrupted {la}, "
+          f"max difference {diff:.3g} (bound 1e-6)")
+    check(diff <= 1e-6, f"checkpoint restart: losses differ by {diff}")
+    return {"losses_uninterrupted": la, "losses_restored": lb, "max_diff": diff}
+
+
 # -- phase 7: process fabrics (host code on the card's machine) ---------------
 
 # the reference's own non-smoke sizes: benchmarks/offload_overhead.py (Fig. 3
@@ -2649,9 +3200,31 @@ def main() -> int:
     fabrics["card"] = smi[0]
     release(torch)
     print(f"phase 7b (fresh-interpreter process fabrics) took {fabrics['fresh_s']:.1f} s")
+    t8 = time.perf_counter()
+    records.update(check_kernel_grads(torch))
+    release(torch)
+    print(f"phase 8a (kernel gradients) took {time.perf_counter() - t8:.1f} s")
+    train = {"card": smi[0]}
+    t0 = time.perf_counter()
+    for arch, steps in (("internlm2-20b", WITNESS_STEPS), ("olmoe-1b-7b", 0)):
+        train[f"card_vs_cpu {arch}"] = card_vs_cpu(torch, arch, steps)
+        release(torch)
+    print(f"phase 8b/8c card vs CPU took {time.perf_counter() - t0:.1f} s")
+    for arch, layers, steps in TRAINED:
+        t0 = time.perf_counter()
+        train[arch] = train_full(torch, arch, layers, steps)
+        release(torch)
+        print(f"phase 8 train {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train["checkpoint_restart"] = checkpoint_restart(torch)
+    release(torch)
+    print(f"phase 8d (checkpoint restart) took {time.perf_counter() - t0:.1f} s")
+    train["phase_s"] = time.perf_counter() - t8
+    print(f"phase 8 took {train['phase_s']:.1f} s")
     runs = [s["launches"] for s in (*served.values(), *full.values())] + [
         cluster[m]["launches"]
-        for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")]
+        for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")] + [
+        train[arch]["launches"] for arch, _, _ in TRAINED]
 
     extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
              "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled")
@@ -2685,6 +3258,7 @@ def main() -> int:
     print(json.dumps({"attention_paths": full}))
     print(json.dumps({"cluster_serve": cluster}))
     print(json.dumps({"process_fabrics": fabrics}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -178,3 +178,19 @@ def check_aux(name: str, like, tensors, dtype, what: str) -> None:
         if t.device != like.device or t.dtype != dtype:
             raise TypeError(f"{name} {what} must be {dtype} on {like.device}, "
                             f"got {t.dtype} on {t.device}")
+
+
+def grad_wanted(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors`` (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(name: str, item: str, *tensors) -> None:
+    """Raise for a kernel call autograd would record: the kernel writes its
+    output through raw pointers, so its gradient would stop there
+    silently.  ``item`` names the ROADMAP item that ports its backward."""
+    if grad_wanted(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP Queue 1 item "
+            f"{item}); call it under torch.no_grad() or on CPU tensors")

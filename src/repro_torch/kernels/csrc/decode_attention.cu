@@ -533,6 +533,8 @@ int dispatch(int d, const void* q, const void* k, const void* v, const int* leng
     case 80: return launch<T, 80, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
     case 128:
       return launch<T, 128, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    case 192:
+      return launch<T, 192, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
     default: return kUnsupported;
   }
 }

@@ -20,7 +20,9 @@
 //    ring, the next two tiles loading while the current one is multiplied;
 //    rows are padded by 8 bf16 (16 bytes), so ldmatrix is free of bank
 //    conflicts; 139 KB at d = 128 (one block of 8 warps an SM), 90 KB at
-//    d = 80 (two);
+//    d = 80 (two), 200 KB at d = 192 (one), where the q tile stays in
+//    shared memory and is read by ldmatrix at each k16 step (its fragments
+//    in registers would spill beside the 96 floats of o a thread);
 //  * S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, float32
 //    accumulators); P goes from the S accumulators straight into A
 //    fragments (two n8 tiles make one k16 fragment) and never touches shared
@@ -304,7 +306,11 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const int wq = q0 + 16 * warp;  // this warp's first query row
   const int r0 = wq + lane / 4;   // row of accumulator elements 0, 1 (2, 3: r0 + 8)
   T* qw = qs + 16 * warp * RS;    // this warp's rows of qs
-  unsigned qf[KD][4];
+  // q fragments stay in registers up to d = 128; at d = 192 they would
+  // take 48 more registers a thread beside the 96 of o, so each k16 step
+  // reads them from the warp's rows of qs (ldmatrix) instead
+  constexpr bool kQRegs = D <= 128;
+  unsigned qf[kQRegs ? KD : 1][4];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
@@ -315,10 +321,10 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<kStages - 2>();  // tile t (and q) have landed ...
     __syncthreads();               // ... for every thread, and tile t - 1 is consumed
-    if (t == 0) {
+    if (kQRegs && t == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], qw + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(qf[kQRegs ? kk : 0], qw + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
     }
     const int pf = t + kStages - 1;
     if (pf < nk) {
@@ -339,15 +345,19 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      if constexpr (!kQRegs)
+        ldmatrix_x4(qf[0], qw + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+      const unsigned(&qa)[4] = qf[kQRegs ? kk : 0];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         unsigned kf[4];
         ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // element (j, e): key k0 + 8 j + 2 (lane % 4) + e % 2, row r0 + 8 (e / 2)
     const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > wq) ||
@@ -467,6 +477,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B,
     case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
     case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 192: return launch<T, 192>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
     default: return kUnsupported;
   }
 }

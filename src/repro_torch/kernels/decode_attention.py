@@ -47,7 +47,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_q8_ref, decode_attention_ref
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 192)
 MAX_Q_PER_KV = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -101,6 +101,7 @@ def decode_attention(q, k, v, lengths):
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
+    _build.no_backward("decode_attention", "12d", q, k, v)
     return _launch(q, k, v, lengths)
 
 
@@ -124,6 +125,7 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, lengths):
     """
     if q.device.type == "cpu":
         return decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths)
+    _build.no_backward("decode_attention_q8", "12d", q, k, v, k_scale, v_scale)
     return _launch(q, k, v, lengths, scales=(k_scale, v_scale))
 
 

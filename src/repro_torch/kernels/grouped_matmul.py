@@ -69,7 +69,51 @@ def grouped_matmul(x, w):
     """
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
+    if _build.grad_wanted(x, w):
+        return _GroupedMatmul.apply(x, w)
     return _launch(x, w)
+
+
+def grouped_matmul_backward(x, w, dy):
+    """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient ``dy``,
+    each computed by the kernel itself: dx = dy w^T and dw = x^T dy, on
+    transposed contiguous operands.  dw contracts over the capacity dim,
+    which may be ragged: x^T is stored with its rows padded to a multiple
+    of 8 elements (16 bytes), and the kernel reads zeros past C."""
+    return tuple(_launch(a, b) for a, b in backward_operands(x, w, dy))
+
+
+def backward_operands(x, w, dy):
+    """The operand pairs of :func:`grouped_matmul_backward`'s two products,
+    ((dy, w^T), (x^T, dy)), each a view the kernel takes."""
+    if not _build._aligned(dy) or dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    E, C, d = x.shape
+    xt = torch.zeros((E, d, -(-C // 8) * 8), dtype=x.dtype, device=x.device)
+    xt[:, :, :C].copy_(x.transpose(1, 2))
+    return (dy, w.transpose(1, 2).contiguous()), (xt[:, :, :C], dy)
+
+
+def grouped_matmul_backward_plain(x, w, dy):
+    """The plain version of :func:`grouped_matmul_backward`: autograd
+    through :func:`grouped_matmul_plain`."""
+    with torch.enable_grad():
+        xs, ws = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        return torch.autograd.grad(grouped_matmul_plain(xs, ws), (xs, ws), dy)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The kernel, with :func:`grouped_matmul_backward` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return grouped_matmul_backward(x, w, dy)
 
 
 def route(x, w) -> str:

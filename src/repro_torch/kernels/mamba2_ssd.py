@@ -89,6 +89,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
     """
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+    _build.no_backward("mamba2_ssd", "12c", x, dt, A, Bm, Cm, D, state)
     return _launch(x, dt, A, Bm, Cm, D, state, chunk)
 
 

@@ -103,6 +103,7 @@ def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
     if q.device.type == "cpu":
         h, st = mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state, chunk=chunk)
         return (h if out is None else out.copy_(h)), st
+    _build.no_backward("mlstm", "12b", q, k, v, i_pre, f_pre, *(state or ()))
     return _launch(q, k, v, i_pre, f_pre, state, chunk, out)
 
 

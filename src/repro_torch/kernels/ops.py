@@ -14,7 +14,9 @@ them per head and transposed everything) and fuses the D x skip, rounding y
 once as the reference model does.
 
 A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
-kernel (each kernel module keeps its launch counter).
+kernel (each kernel module keeps its launch counter).  Under autograd a
+CUDA call of flash attention or the grouped matmul records its backward
+kernels; the mLSTM, SSD and decode kernels have none yet and raise.
 """
 
 from __future__ import annotations
@@ -32,12 +34,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=None):
     """q (B, Sq, H, hd); k/v (B, Skv, Hkv, hd) -> (B, Sq, H, hd).  Cross
     attention (Sq != Skv) is non-causal; ``window`` applies only when
     causal."""
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    flash_attention_heads(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, out=out.transpose(1, 2),
-    )
-    return out
+    t = lambda a: a.transpose(1, 2)
+    return t(flash_attention_heads(t(q), t(k), t(v), causal=causal, window=window))
 
 
 def decode_attention_bhsd(q, k, v, lengths):

@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models import xlstm as X
@@ -38,6 +39,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable           # (seed=0) -> params on device
+    loss: Callable           # (params, batch, sharder=None) -> (loss, metrics)
     forward: Callable        # (params, batch) -> logits
     prefill: Callable        # (params, batch) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch) -> (logits, cache), cache in place
@@ -58,6 +60,35 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _generic_loss(forward_fn):
+    """``Model.loss`` over ``forward_fn(params, batch) -> (logits, aux)``, as
+    the reference's ``_generic_loss``: cross-entropy (a vision prefix
+    carries labels -100) plus 0.01 x aux.  A sharder waits for ROADMAP
+    Queue 1 item 13."""
+    def loss(params, batch, sharder=None, aux_weight=0.01):
+        if sharder is not None:
+            raise NotImplementedError("sharded loss waits for ROADMAP Queue 1 item 13")
+        logits, aux = forward_fn(params, batch)
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:  # vision prefix (VLM)
+            pad = torch.full((labels.shape[0], logits.shape[1] - labels.shape[1]), -100,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        ce = L.cross_entropy(logits, labels)
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+    return loss
+
+
+def _no_aux(forward_fn):
+    """(logits, aux = 0) of a family without an aux loss."""
+    def fwd(params, batch):
+        logits = forward_fn(params, batch)[0]
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    return fwd
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
@@ -71,6 +102,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=lambda seed=0: X.xlstm_init(cfg, device=dev, generator=generator(seed)),
+            loss=_generic_loss(_no_aux(lambda p, b: X.xlstm_forward(p, b, cfg))),
             forward=lambda p, b: X.xlstm_forward(p, b, cfg)[0],
             prefill=lambda p, b: X.xlstm_forward(p, b, cfg, return_cache=True),
             decode_step=lambda p, c, b: X.xlstm_decode_step(p, c, b, cfg),
@@ -82,6 +114,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=lambda seed=0: Z.zamba2_init(cfg, device=dev, generator=generator(seed)),
+            loss=_generic_loss(_no_aux(lambda p, b: Z.zamba2_forward(p, b, cfg))),
             forward=lambda p, b: Z.zamba2_forward(p, b, cfg)[0],
             prefill=lambda p, b: Z.zamba2_forward(p, b, cfg, return_cache=True),
             decode_step=lambda p, c, b: Z.zamba2_decode_step(p, c, b, cfg),
@@ -95,6 +128,7 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             cfg=cfg,
             device=dev,
             init=lambda seed=0: W.whisper_init(cfg, device=dev, generator=generator(seed)),
+            loss=_generic_loss(_no_aux(lambda p, b: W.whisper_forward(p, b, cfg))),
             forward=lambda p, b: W.whisper_forward(p, b, cfg)[0],
             prefill=lambda p, b: W.whisper_forward(p, b, cfg, return_cache=True),
             decode_step=lambda p, c, b: W.whisper_decode_step(p, c, b, cfg),
@@ -107,8 +141,9 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         cfg=cfg,
         device=dev,
         init=lambda seed=0: T.lm_init(cfg, device=dev, generator=generator(seed)),
+        loss=_generic_loss(lambda p, b: T.lm_forward(p, b, cfg)[::2]),   # (logits, aux)
         forward=lambda p, b: T.lm_forward(p, b, cfg)[0],
-        prefill=lambda p, b: T.lm_forward(p, b, cfg, return_cache=True),
+        prefill=lambda p, b: T.lm_forward(p, b, cfg, return_cache=True)[:2],
         decode_step=lambda p, c, b: T.lm_decode_step(p, c, b, cfg),
         init_cache=lambda bs, ml, window=None: T.lm_init_cache(cfg, bs, ml, device=dev,
                                                                 window=window),

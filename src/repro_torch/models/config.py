@@ -3,8 +3,8 @@
 One :class:`ModelConfig` describes any of the assigned architectures; family
 subconfigs switch in MoE / xLSTM / SSM / enc-dec / VLM behaviour.  The port
 reads the same fields as the reference, so a reference config and its copy
-here describe the same model.  ``param_count``/``active_param_count`` are
-left out: the reference computes them with ``jax.eval_shape``.
+here describe the same model.  ``param_count``/``active_param_count`` count
+from shapes on the ``meta`` device (``models.counting``).
 """
 
 from __future__ import annotations
@@ -101,6 +101,17 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def param_count(self) -> int:
+        """Total parameters (for MODEL_FLOPS and checkpoint sizing)."""
+        from repro_torch.models.counting import count_params
+
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.counting import count_active_params
+
+        return count_active_params(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -294,3 +294,16 @@ def embed(p, tokens, dtype):
 def unembed(p_head, x, dtype):
     """x (b, t, d) -> logits (b, t, V); head weight (d, V)."""
     return x @ _cast(p_head["w"], dtype)
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 0.0):
+    """Mean token cross-entropy in float32; labels -100 are ignored."""
+    logits = logits.float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    loss = (logz - gold) * valid
+    if z_loss:
+        loss = loss + z_loss * logz.square() * valid
+    return loss.sum() / valid.sum().clamp(min=1)

@@ -12,9 +12,11 @@ embeddings; ``window`` selects sliding-window attention over a ring cache;
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -30,12 +32,22 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def remat(fn, cfg: ModelConfig, x):
+    """``fn`` under ``torch.utils.checkpoint`` (its activations recomputed
+    in the backward pass) when ``cfg.remat`` asks for it and autograd
+    records ``x``: the reference's ``jax.checkpoint`` of each layer
+    (``_remat_wrap``; every policy but "none" saves nothing inside the
+    layer here).  Serving, under no grad, calls ``fn`` as it is."""
+    if cfg.remat == "none" or not (torch.is_grad_enabled() and x.requires_grad):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
                 cache_pos=None, causal=True, window=None):
     """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)), the MLP being the
-    MoE layer when ``cfg.moe`` is set.  Returns (x, new_cache).  (The
-    reference also returns the MoE aux loss; ``moe_apply`` returns it, and
-    the port has no training step to use it yet.)"""
+    MoE layer when ``cfg.moe`` is set.  Returns (x, new_cache, aux), aux the
+    MoE load-balance loss (0 without MoE)."""
     dt = torch_dtype(cfg.dtype)
     h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     attn_out, new_cache = L.attention_apply(
@@ -46,10 +58,11 @@ def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     x = x + attn_out
     h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
     if cfg.moe is not None:
-        mlp_out, _ = moe_apply(p["moe"], h, cfg.moe, dt)
+        mlp_out, aux = moe_apply(p["moe"], h, cfg.moe, dt)
     else:
         mlp_out = L.mlp_apply(p["mlp"], h, cfg.mlp, dt)
-    return x + mlp_out, new_cache
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_out, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -169,23 +182,40 @@ def lm_forward(p, batch, cfg: ModelConfig, *, window=None, return_cache=False):
     window too when ``window``), over the vision prefix and the tokens for
     a VLM.
 
-    Returns (logits, caches); ``caches`` are stacked (L, B, S, Hkv, hd)
-    ``{k, v}`` when ``return_cache`` (prefill), else None.  (The reference
-    also returns the mean MoE aux loss, which serving does not read.)
+    Returns (logits, caches, aux_mean); ``caches`` are stacked (L, B, S,
+    Hkv, hd) ``{k, v}`` when ``return_cache`` (prefill), else None; aux is
+    the MoE load-balance loss averaged over the layers.  Each layer runs
+    under :func:`remat` when training asks for it.
     """
     dt = torch_dtype(cfg.dtype)
     x = _embed_inputs(p, batch, cfg, dt)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, cache = layer_apply(_layer(p["layers"], i), x, cfg, positions=positions,
-                               window=window)
+        x, cache, a = remat(layer_apply, cfg, x)(_layer(p["layers"], i), x, cfg,
+                                                 positions=positions, window=window)
+        aux = aux + a
         if return_cache:
             caches.append(cache)
     stacked = None
     if return_cache:
         stacked = {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
-    return _logits(p, x, cfg, dt), stacked
+    return _logits(p, x, cfg, dt), stacked, aux / cfg.num_layers
+
+
+def lm_loss(p, batch, cfg: ModelConfig, *, aux_weight=0.01):
+    """Mean token cross-entropy plus ``aux_weight`` times the MoE aux loss;
+    a VLM's vision prefix carries no labels (-100).  Returns (loss,
+    {"ce", "aux"})."""
+    logits, _, aux = lm_forward(p, batch, cfg)
+    labels = batch["labels"]
+    if cfg.vlm is not None:
+        pad = torch.full((labels.shape[0], cfg.vlm.num_patches), -100,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = L.cross_entropy(logits, labels)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device,
@@ -224,7 +254,7 @@ def lm_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
     else:
         positions = pos[:, None].to(torch.int32)        # (B, t=1) per-slot
     for i in range(cfg.num_layers):
-        x, _ = layer_apply(
+        x, _, _ = layer_apply(
             _layer(p["layers"], i), x, cfg, positions=positions,
             cache=_layer(cache, i), cache_pos=pos, window=window,
         )

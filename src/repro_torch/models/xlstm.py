@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _cast
 
@@ -410,11 +411,11 @@ def xlstm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
     for g in range(G):
         mst.append([])
         for j in range(M):
-            x, st = mlstm_block_apply(_at(p["mlstm"], g, j), x, cfg)
+            x, st = T.remat(mlstm_block_apply, cfg, x)(_at(p["mlstm"], g, j), x, cfg)
             mst[-1].append(st)
         sst.append([])
         for j in range(Sl):
-            x, st = slstm_block_apply(_at(p["slstm"], g, j), x, cfg)
+            x, st = T.remat(slstm_block_apply, cfg, x)(_at(p["slstm"], g, j), x, cfg)
             sst[-1].append(st)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(p["head"], x, dt)

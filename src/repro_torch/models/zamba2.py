@@ -78,9 +78,9 @@ def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False, window=Non
     for g in range(G):
         mst.append([])
         for j in range(per):
-            x, st = mamba2_block_apply(_at(p["mamba"], g, j), x, cfg)
+            x, st = T.remat(mamba2_block_apply, cfg, x)(_at(p["mamba"], g, j), x, cfg)
             mst[-1].append(st)
-        x, kv = T.layer_apply(p["shared_attn"], x, cfg, positions=positions, window=win)
+        x, kv, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions, window=win)
         kvs.append(kv)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(p["head"], x, dt)
@@ -126,7 +126,7 @@ def zamba2_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
             for dst, src in zip(lanes, new):
                 if src is not dst:
                     dst.copy_(src)
-        x, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions,
+        x, _, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions,
                              cache=T._layer(cache["attn_kv"], g), cache_pos=pos, window=win)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return L.unembed(p["head"], x, dt), cache

@@ -20,6 +20,7 @@ The reference worker imports JAX; it runs with ``JAX_PLATFORMS=cpu``.
 from __future__ import annotations
 
 import os
+import time
 import uuid
 from types import SimpleNamespace
 
@@ -230,9 +231,21 @@ def test_cross_package_calls_over_one_shm_fabric(host_name, worker_name, monkeyp
 _DET_CFG = dict(drop=0.2, dup=0.15, schedule=((5, 8, "drop"), (12, 14, "deliver")))
 
 
-def _drive_chaos(pkg, kind: str, seed: int, n: int = 40):
+def _side_count(log, side: str, action: str) -> int:
+    return sum(1 for e in log if e[4] == side and e[3] == action)
+
+
+def _drive_chaos(pkg, kind: str, seed: int, n: int = 40, deadline_s: float = 30.0):
     """Send ``n`` HAM frames 0 -> 1 through a seeded chaos wrapper over one
-    package's fabric, drain the receiver; returns (fault_log, msg_ids)."""
+    package's fabric, drain the receiver; returns (fault_log, msg_ids).
+
+    The send-side decisions are made inside ``send``, so once the sends
+    return the send-side log fixes how many frames reach the receiver:
+    ``n - drops + dups``.  The receiver makes one recv-side decision per
+    arriving frame (deliver: one id; dup: two ids and a log entry; drop:
+    no id and a log entry), so the drain runs until every arriving frame
+    has been decided, however slowly a reader delivers them, under a long
+    deadline, and asserts that count."""
     inner = {"local": lambda: pkg.local.LocalFabric(2),
              "shm": lambda: pkg.shm.ShmFabric(2, capacity=1 << 20),
              "socket": lambda: pkg.socket.SocketFabric(2)}[kind]()
@@ -244,18 +257,27 @@ def _drive_chaos(pkg, kind: str, seed: int, n: int = 40):
         for i in range(n):
             src.send(1, pkg.message.encode_frame(0, b"\0" * 8, src_node=0,
                                                  msg_id=i + 1))
-        ids, quiet = [], 0
-        while quiet < 10:  # 0.5 s of silence: the link has drained
+        sent_log = list(chaos.fault_log)
+        arriving = n - _side_count(sent_log, "send", "drop") + _side_count(
+            sent_log, "send", "dup")
+        ids: list = []
+
+        def decided() -> int:
+            log = list(chaos.fault_log)
+            return (len(ids) - _side_count(log, "recv", "dup")
+                    + _side_count(log, "recv", "drop"))
+
+        end = time.monotonic() + deadline_s
+        while decided() < arriving and time.monotonic() < end:
             frames = dst.recv_many(64, timeout=0.05)
             if frames:
                 ids.extend(pkg.message.HEADER_STRUCT.unpack_from(f, 0)[5]
                            for f in frames)
                 frames = None
                 dst.release()
-                quiet = 0
-            else:
-                quiet += 1
         chaos.disarm()
+        assert decided() == arriving, (
+            f"{kind}: {decided()} of {arriving} arriving frames decided in {deadline_s} s")
         return list(chaos.fault_log), ids
     finally:
         chaos.close()

@@ -136,6 +136,26 @@ def test_custom_codec_roundtrip():
     np.testing.assert_allclose(out.codes * out.scale, x, atol=scale)
 
 
+def test_compressed_tensor_codec_roundtrip():
+    """The reference's codec case, over the ported ``CompressedTensor``
+    (registered under the reference's type name): its frame is the
+    reference's, byte for byte, and decodes in either package."""
+    from repro.core import migratable as ref_mig
+    from repro.optim.compression import CompressedTensor as RefCompressed
+    from repro_torch.optim.compression import CompressedTensor
+
+    x = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    ct = CompressedTensor.compress(x)
+    frame = mig.pack_dynamic(ct)
+    out = mig.unpack_dynamic(frame)
+    assert isinstance(out, CompressedTensor)
+    np.testing.assert_allclose(out.decompress(), x, atol=ct.scale)
+    assert frame == ref_mig.pack_dynamic(RefCompressed.compress(x))
+    ref_out = ref_mig.unpack_dynamic(frame)
+    assert isinstance(ref_out, RefCompressed)
+    np.testing.assert_array_equal(ref_out.q, ct.q)
+
+
 def test_buffer_ptr_is_fixed_size_static():
     from repro_torch.offload.buffer import BufferPtr
 

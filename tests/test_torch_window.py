@@ -230,8 +230,8 @@ def test_lm_forward_window(dense):
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 19))
     jl, jc, _ = JT.lm_forward(jp, {"tokens": jnp.asarray(tokens)}, jcfg, window=WINDOW,
                               return_cache=True)
-    tl, tc = T.lm_forward(p, {"tokens": torch.from_numpy(tokens)}, cfg, window=WINDOW,
-                          return_cache=True)
+    tl, tc, _ = T.lm_forward(p, {"tokens": torch.from_numpy(tokens)}, cfg, window=WINDOW,
+                             return_cache=True)
     _close(tl, jl)
     _close_tree(tc, jc)
 
