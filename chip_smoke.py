@@ -85,19 +85,26 @@ Phases, in order; any failure raises and exits non-zero:
 8. training on the card: 8a holds the flash-attention backward kernel
    against autograd through the plain attention (internlm2-20b's,
    zamba2's d 80, whisper's encoder and cross, a window, a ragged length
-   and d 192, float32 and bfloat16; repeated calls bit for bit) and the
+   and d 192, float32 and bfloat16; repeated calls bit for bit), the
    grouped-matmul backward (olmoe's prefill, a ragged capacity) against
-   its plain version, times them beside bound, plain and the PyTorch
-   yardstick, and checks that the mLSTM, SSD and decode ops raise under
-   grad; 8b holds one step's gradients of internlm2-20b (2 layers,
-   float32, B 1 x S 128) card against CPU, then trains internlm2-20b and
-   8c olmoe-1b-7b at full width (2 layers, float32 params, bf16 compute,
-   full remat, B 4 x S 2048, 12 steps at lr 1e-4) through
-   ``Trainer.register_handlers`` and ``train/run_steps`` on a local
-   ``OffloadDomain``: every step-1 gradient
-   leaf finite and non-zero, the loss falling, exact flash forward,
-   backward and grouped-matmul launches, step times, tokens/s, model-FLOPs
-   share, peak memory and a profiled step; 8d restarts a narrow
+   its plain version, and the mLSTM and SSD backward kernels against
+   autograd through their plain chunked forms (xlstm-1.3b's and
+   zamba2-2.7b's training shapes and S 509, float32 and bfloat16, each
+   limit below what a backward skipping one chunk reads; repeated calls
+   bit for bit), times them beside bound, plain and the PyTorch yardstick
+   where one exists, and checks that the decode ops raise under grad; 8b
+   holds one step's float32 gradients card against CPU (B 1 x S 128) of
+   internlm2-20b and olmoe-1b-7b (2 layers), xlstm-1.3b (8 layers: one
+   group of 7 mLSTM + 1 sLSTM) and zamba2-2.7b (6 Mamba2 blocks, one
+   shared-attention application), then trains internlm2-20b and 8c
+   olmoe-1b-7b (2 layers, 12 steps), xlstm-1.3b (8 layers, 6 steps: its
+   sLSTM loop makes ~25 launches a position) and zamba2-2.7b (6 layers,
+   12 steps) at full width (float32 params, bf16 compute, full remat, B 4
+   x S 2048, lr 1e-4) through ``Trainer.register_handlers`` and
+   ``train/run_steps`` on a local ``OffloadDomain``: every step-1 gradient
+   leaf finite and non-zero, the loss falling, exact launches of every
+   kernel (``train_launches``), step times, tokens/s, model-FLOPs share,
+   peak memory and a profiled step; 8d restarts a narrow
    internlm2-shaped trainer from its checkpoint on the card and holds the
    next 3 losses to the uninterrupted run's within 1e-6;
 9. print the kernel line, one serving line per model, the phase 5b line,
@@ -277,6 +284,19 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd.py:29",
     },
+    # the gradients of the two chunked scans: the Pallas kernels have none
+    # (the reference differentiates its plain chunked forms through XLA)
+    "mlstm_backward": {
+        "source": "src/repro_torch/kernels/csrc/mlstm_bwd.cu",
+        "replaces": "src/repro/kernels/mlstm.py:34",
+        "variant": "backward (dq, dk, dv, di, df) of the mLSTM kernel, for training on the card",
+    },
+    "mamba2_ssd_backward": {
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd.py:29",
+        "variant": "backward (dx, ddt, dA, dB, dC, dD) of the SSD kernel, for training on the "
+                   "card",
+    },
 }
 
 
@@ -299,7 +319,9 @@ def _counter_modules():
             "flash_attention_window": (fla, "launches_window"),
             "flash_attention_backward": (fla, "launches_backward"),
             "grouped_matmul": (gmm, "launches"), "mlstm": (mlstm, "launches"),
-            "mamba2_ssd": (ssd, "launches")}
+            "mlstm_backward": (mlstm, "launches_backward"),
+            "mamba2_ssd": (ssd, "launches"),
+            "mamba2_ssd_backward": (ssd, "launches_backward")}
 
 
 def zero_counts() -> None:
@@ -1822,11 +1844,10 @@ def serve(torch, arch: str) -> dict:
     per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
     L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
     L_ssd = cfg.num_layers if hybrid else 0
-    expected = {"decode_attention": L_attn * steps, "decode_attention_q8": 0,
-                "flash_attention": L_attn * admissions, "flash_attention_window": 0,
-                "flash_attention_backward": 0,
-                "grouped_matmul": 3 * L_attn * (steps + admissions) if cfg.moe else 0,
-                "mlstm": L_mlstm * admissions, "mamba2_ssd": L_ssd * admissions}
+    expected = dict.fromkeys(launches, 0)   # no variant, no backward
+    expected.update(decode_attention=L_attn * steps, flash_attention=L_attn * admissions,
+                    grouped_matmul=3 * L_attn * (steps + admissions) if cfg.moe else 0,
+                    mlstm=L_mlstm * admissions, mamba2_ssd=L_ssd * admissions)
     check(launches == expected,
           f"{arch} launches {launches} != {expected} ({cfg.num_layers} layers, {steps} steps, "
           f"{admissions} admissions)")
@@ -2384,6 +2405,27 @@ FLASH_BWD_CASES = [
     ("ragged", 1, 48, 8, 509, 509, 128, True, None),
     ("d192", 1, 96, 8, 1024, 1024, 192, True, None),
 ]
+# mLSTM and SSD backward: max |kernel - plain| <= tol x rms(plain) for each
+# gradient, as the flash backward.  Each limit lies between the largest
+# reading of the sound kernel and what a backward that skips one chunk
+# reads (`skipped_chunk_grads`); the script checks both sides.  On an H100
+# 80GB HBM3 at 700 W the sound kernels read at most 0.105 in bf16 (the
+# mLSTM's dq: one bf16 rounding of its largest entries) and 3.1e-4 in
+# float32 (the SSD's dx); a skipped chunk read at least 1.1 (the SSD's dD).
+SCAN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.5}
+# (what, B, H, S, dk, dv, chunk): xlstm-1.3b's training step (B 4 x S
+# 2048) and a ragged length; q and k |N(0, 1)| as phase 3 draws them
+MLSTM_BWD_CASES = [
+    ("train", 4, 4, 2048, 512, 1024, 256),
+    ("ragged", 1, 4, 509, 512, 1024, 256),
+]
+# (what, B, S, H, G, chunk, views): zamba2-2.7b's training step (x, B and C
+# views of one conv output, as the Mamba2 block passes them) and a ragged
+# length; N = P = 64
+SSD_BWD_CASES = [
+    ("train", 4, 2048, 80, 1, 256, True),
+    ("ragged", 1, 509, 80, 1, 256, False),
+]
 # gradients card vs CPU, float32, one step at B 1 x S 128: |card - CPU| <=
 # rtol x max |CPU| of each leaf (sums over d 6144 / 16384 in another order,
 # as phase 4's logits; a leaf's small entries carry its large ones' error)
@@ -2393,12 +2435,23 @@ CARD_CPU_GRAD_RTOL = 1e-3
 # ~1e-7; Adam's sign-like first steps only amplify the gradients' float32
 # reassociation in the entries nearest zero); the published numerics (bf16
 # compute, full remat) on the card within 5% of the float32 CPU's (bf16
-# keeps 8 bits; a step that doubles the loss is a 100% move)
+# keeps 8 bits; a step that doubles the loss is a 100% move).  Two steps:
+# the rise shows at step 2, and each float32 CPU step of two full-width
+# internlm2-20b layers takes ~30 s of the script's time limit
 WITNESS_OPT = dict(lr=1e-3, warmup_steps=5)
-WITNESS_STEPS = 3
+WITNESS_STEPS = 2
 WITNESS_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
-# phase 8b/8c: (arch, layers, steps); 8d: a narrow internlm2-shaped config
-TRAINED = (("internlm2-20b", 2, 12), ("olmoe-1b-7b", 2, 12))
+# phase 8b: (arch, witness steps, layers) held card against CPU; xlstm-1.3b
+# at one full group (7 mLSTM + 1 sLSTM: `_group_counts` takes multiples of
+# 8), zamba2-2.7b at 6 Mamba2 blocks and one application of the shared
+# attention (`zamba2._group_counts` takes multiples of attn_every)
+CARD_VS_CPU = (("internlm2-20b", WITNESS_STEPS, 2), ("olmoe-1b-7b", 0, 2), ("xlstm-1.3b", 0, 8),
+               ("zamba2-2.7b", 0, 6))
+# phase 8b/8c: (arch, layers, steps); xlstm-1.3b takes 6 steps of ~6.6 s
+# (its sLSTM loop), for the script's time limit; 8d: a narrow
+# internlm2-shaped config
+TRAINED = (("internlm2-20b", 2, 12), ("olmoe-1b-7b", 2, 12), ("xlstm-1.3b", 8, 6),
+           ("zamba2-2.7b", 6, 12))
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 # Adam's first steps move every weight by about lr (m / sqrt(v) = sign g),
 # so each step shifts every logit by ~0.8 d lr through the head: at d 6144
@@ -2460,10 +2513,158 @@ def skipped_tile_grads(torch, q, k, v, do, want, causal, window):
     return [w.float() - part for w, part in zip(want, parts)]
 
 
+def mlstm_bwd_flops(S: int, chunk: int, dk: int, dv: int) -> int:
+    """Operations of one (sequence, head) of the mLSTM gradient as the
+    function needs them (the forward's states at chunk starts taken as
+    given): per chunk of n positions, P = q k^T and D = dh v^T again, and dq
+    = dS k, dk = dS^T q, dv = P^T dh, on and below the diagonal, n(n+1)/2 x
+    2(3 dk + 2 dv); and four state products, dq's G C^T, dk's v dC^T, dv's k
+    dC and the carried dC's q^T G, 2n dk dv each."""
+    ns = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    return sum(n * (n + 1) * (3 * dk + 2 * dv) + 8 * n * dk * dv for n in ns)
+
+
+def ssd_bwd_flops(S: int, chunk: int, N: int, P: int) -> tuple[int, int]:
+    """(per head, per group) operations of the SSD gradient as the function
+    needs them: per chunk of n positions and head, dM = dy x^T, dx = M^T dy
+    (2P deep), dC = dCB B and dB = dCB^T C (2N deep) on and below the
+    diagonal, n(n+1)/2 x 2(2P + 2N), and four state products (the carried
+    dh, dx's, dC's and dB's), 2n N P each; per group, C B^T, n(n+1)/2 x 2N."""
+    ns = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    return (sum(n * (n + 1) * (2 * P + 2 * N) + 8 * n * N * P for n in ns),
+            sum(n * (n + 1) * N for n in ns))
+
+
+def skipped_chunk_grads(backward_plain, dout, seq_dim, span, *args, **kw):
+    """What a backward that skips one chunk of ``span`` positions gives: the
+    plain gradient with the middle chunk's output gradient zeroed."""
+    S = dout.shape[seq_dim]
+    c0 = -(-S // span) // 2 * span
+    cut = dout.clone()
+    cut.narrow(seq_dim, c0, min(span, S - c0)).zero_()
+    return backward_plain(*args, cut, **kw)
+
+
+def check_scan_grads(torch) -> dict:
+    """Phase 8a's chunked scans: the mLSTM and SSD backward kernels against
+    autograd through their plain versions on the card, float32 and bf16, at
+    the training shapes and a ragged length; repeated calls bit for bit;
+    timed beside bound and plain (no single PyTorch call computes either
+    gradient, so the library column is none)."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm
+
+    print(f"mLSTM and SSD backward tolerance: max |kernel - plain| <= tol x rms(plain), tol "
+          f"{SCAN_GRAD_TOL}; a backward that skips one chunk must read above it")
+    records = {}
+    names = {"mlstm": ("dq", "dk", "dv", "di", "df"),
+             "ssd": ("dx", "ddt", "dA", "dB", "dC", "dD")}
+
+    def judge(kind, what, shape, dt, got, want, wrong, again):
+        errs = grad_errs(torch, got, want)
+        ok = max(errs) <= SCAN_GRAD_TOL[dt] < min(wrong)
+        print(f"{kind}_backward {what} {shape} {dt}: max err / rms "
+              f"{dict(zip(names[kind], (f'{e:.3g}' for e in errs)))}; one chunk skipped "
+              f"{dict(zip(names[kind], (f'{e:.3g}' for e in wrong)))}; limit "
+              f"{SCAN_GRAD_TOL[dt]} between them: {ok}")
+        check(max(errs) <= SCAN_GRAD_TOL[dt],
+              f"{kind}_backward {what} {dt} disagrees with its plain version: {errs}")
+        check(SCAN_GRAD_TOL[dt] < min(wrong),
+              f"{kind}_backward {what} {dt}: the limit would pass a skipped chunk: {wrong}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{kind}_backward {what} {dt}: a second call differs")
+        return max(max_err(torch, a, b) for a, b in zip(got, want))
+
+    for i, (what, B, H, S, dk, dv, chunk) in enumerate(MLSTM_BWD_CASES):
+        for dt in ("bfloat16", "float32"):
+            g = torch.Generator(device=DEVICE).manual_seed(900 + i)
+            tdt = getattr(torch, dt)
+            q = torch.randn(B, S, H, dk, generator=g, device=DEVICE).abs().to(tdt)
+            k = torch.randn(B, S, H, dk, generator=g, device=DEVICE).abs().to(tdt)
+            v = torch.randn(B, S, H, dv, generator=g, device=DEVICE).to(tdt)
+            gates = torch.randn(B, S, 2 * H, generator=g, device=DEVICE)
+            gates[..., H:] += 2.0
+            xs = [t.transpose(1, 2) for t in (q, k, v, *gates.to(tdt).chunk(2, dim=-1))]
+            dh = torch.randn(B, H, S, dv, generator=g, device=DEVICE).to(tdt)
+            got = mlstm.mlstm_chunked_heads_backward(*xs, dh, chunk=chunk)
+            want = mlstm.mlstm_chunked_heads_backward_plain(*xs, dh, chunk=chunk)
+            wrong = grad_errs(torch, skipped_chunk_grads(
+                mlstm.mlstm_chunked_heads_backward_plain, dh, 2, chunk, *xs,
+                chunk=chunk), want)
+            again = mlstm.mlstm_chunked_heads_backward(*xs, dh, chunk=chunk)
+            shape = f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk}"
+            err = judge("mlstm", what, shape, dt, got, want, wrong, again)
+            del again, want
+            if what != "train":   # timed at the training shape only
+                del xs, dh, got
+                continue
+            key = "mlstm_backward" + ("_f32" if dt == "float32" else "")
+            es = q.element_size()
+            nbytes = es * (4 * q.numel() + 3 * v.numel() + 4 * B * S * H)
+            rec = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: mlstm.mlstm_chunked_heads_backward(
+                    *xs, dh, chunk=chunk), 3),
+                plain_ms=time_ms(torch, lambda: mlstm.mlstm_chunked_heads_backward_plain(
+                    *xs, dh, chunk=chunk), 2),
+                library_ms=None, library="none (no single PyTorch call computes it)",
+                shape=f"{shape} {dt}",
+            )
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes, B * H * mlstm_bwd_flops(S, chunk, dk, dv), dt)
+            records[key] = rec
+            print(f"mlstm_backward {shape} {dt}: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+                  f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: the function's "
+                  f"products, mlstm_bwd_flops, and its inputs read and gradients written once)")
+            del xs, dh, got
+            release(torch)
+
+    for i, (what, B, S, H, G, chunk, views) in enumerate(SSD_BWD_CASES):
+        for dt in ("bfloat16", "float32"):
+            g = torch.Generator(device=DEVICE).manual_seed(950 + i)
+            tdt = getattr(torch, dt)
+            xs = ssd_inputs(torch, B, S, H, G, 64, 64, tdt, g, views)
+            dy = torch.randn(B, S, H, 64, generator=g, device=DEVICE).to(tdt)
+            got = ssd.ssd_chunked_backward(*xs, dy, chunk=chunk)
+            want = ssd.ssd_chunked_backward_plain(*xs, dy, chunk=chunk)
+            wrong = grad_errs(torch, skipped_chunk_grads(
+                ssd.ssd_chunked_backward_plain, dy, 1, chunk, *xs, chunk=chunk), want)
+            again = ssd.ssd_chunked_backward(*xs, dy, chunk=chunk)
+            shape = f"B={B} S={S} H={H} G={G} N=P=64 chunk={chunk} views={views}"
+            err = judge("ssd", what, shape, dt, got, want, wrong, again)
+            del again, want
+            if what != "train":
+                del xs, dy, got
+                continue
+            key = "mamba2_ssd_backward" + ("_f32" if dt == "float32" else "")
+            x, dts, A, Bm, Cm, D = xs
+            es = x.element_size()
+            nbytes = es * (3 * x.numel() + 4 * B * S * G * 64) + 4 * (2 * dts.numel() + 4 * H)
+            per_head, per_group = ssd_bwd_flops(S, chunk, 64, 64)
+            rec = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: ssd.ssd_chunked_backward(*xs, dy, chunk=chunk), 5),
+                plain_ms=time_ms(torch, lambda: ssd.ssd_chunked_backward_plain(
+                    *xs, dy, chunk=chunk), 2),
+                library_ms=None, library="none (no single PyTorch call computes it)",
+                shape=f"{shape} {dt}",
+            )
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes, B * (H * per_head + G * per_group), dt)
+            records[key] = rec
+            print(f"mamba2_ssd_backward {shape} {dt}: {rec['ms']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                  f"x, B, C, dt, dy read and every gradient written once; ssd_bwd_flops)")
+            del xs, dy, got
+            release(torch)
+    return records
+
+
 def check_kernel_grads(torch) -> dict:
-    """Phase 8a: the flash backward and the grouped-matmul backward against
-    their plain versions on the card, timed beside bound, plain and the
-    PyTorch yardstick; the kernels without a backward raise under grad."""
+    """Phase 8a: the flash backward, the grouped-matmul backward and the
+    mLSTM and SSD backward kernels against their plain versions on the
+    card, timed beside bound, plain and the PyTorch yardstick; the decode
+    kernels, which have no backward, raise under grad."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2562,6 +2763,8 @@ def check_kernel_grads(torch) -> dict:
             del x, w, dy, got, want
         release(torch)
 
+    records.update(check_scan_grads(torch))
+
     # the kernels without a backward raise under grad, before launching
     before = read_counts()
     g = torch.Generator(device=DEVICE).manual_seed(7)
@@ -2570,12 +2773,6 @@ def check_kernel_grads(torch) -> dict:
     lens = torch.tensor([5, 16], dtype=torch.int32, device=DEVICE)
     kv8 = torch.zeros(2, 16, 2, 64, dtype=torch.int8, device=DEVICE)
     raising = {
-        "mlstm": lambda: ops.mlstm_chunked(mk(1, 64, 2, 256), mk(1, 64, 2, 256),
-                                           mk(1, 64, 2, 256), mk(1, 64, 2, dt=torch.float32),
-                                           mk(1, 64, 2, dt=torch.float32), chunk=64),
-        "mamba2_ssd": lambda: ops.ssd_chunked(
-            mk(1, 64, 4, 64), mk(1, 64, 4, dt=torch.float32), mk(4, dt=torch.float32),
-            mk(1, 64, 1, 64), mk(1, 64, 1, 64), mk(4, dt=torch.float32), chunk=64),
         "decode_attention": lambda: ops.decode_attention_bhsd(
             mk(2, 1, 8, 64), mk(2, 16, 2, 64), mk(2, 16, 2, 64), lens),
         "decode_attention_q8": lambda: ops.decode_attention_q8_bhsd(
@@ -2604,8 +2801,8 @@ def named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def card_vs_cpu(torch, arch: str, steps: int) -> dict:
-    """``arch`` at full width, 2 layers, B 1 x S 128, from one set of params:
+def card_vs_cpu(torch, arch: str, steps: int, layers: int = 2) -> dict:
+    """``arch`` at full width, ``layers`` layers, B 1 x S 128, from one set of params:
     step 1's float32 gradients on the card against the CPU's; then, when
     ``steps``, that many trainer steps at WITNESS_OPT on both (float32) and
     in the published numerics (bf16 compute, full remat) on the card, the
@@ -2617,7 +2814,7 @@ def card_vs_cpu(torch, arch: str, steps: int) -> dict:
     from repro_torch.train.loop import Trainer
     from repro_torch.train.step import value_and_grad
 
-    published = dataclasses.replace(get_config(arch), num_layers=2)
+    published = dataclasses.replace(get_config(arch), num_layers=layers)
     cfg = dataclasses.replace(published, param_dtype="float32", dtype="float32", remat="none")
     opt = adamw.AdamWConfig(**WITNESS_OPT)
     kw = dict(global_batch=1, seq_len=128, data_seed=3)
@@ -2637,7 +2834,7 @@ def card_vs_cpu(torch, arch: str, steps: int) -> dict:
     del g_gpu, g_cpu
     out = {"loss_card": loss_g.item(), "loss_cpu": loss_c.item(), "worst_leaf_rel_err": worst,
            "worst_leaf": worst_leaf, "tolerance": CARD_CPU_GRAD_RTOL}
-    print(f"train {arch} gradients card vs CPU (2 layers, float32, B 1 x S 128): loss "
+    print(f"train {arch} gradients card vs CPU ({layers} layers, float32, B 1 x S 128): loss "
           f"{out['loss_card']:.6f} / {out['loss_cpu']:.6f}, worst leaf {worst_leaf} "
           f"max |card - CPU| / max |CPU| = {worst:.3g} (tolerance {CARD_CPU_GRAD_RTOL})")
     check(abs(out["loss_card"] - out["loss_cpu"]) <= 1e-4 * abs(out["loss_cpu"]),
@@ -2660,8 +2857,8 @@ def card_vs_cpu(torch, arch: str, steps: int) -> dict:
            for run in ("float32_card", "bfloat16_card")}
     out.update(witness_opt=WITNESS_OPT, witness_losses=losses, witness_rel_dev=dev,
                witness_tolerance=WITNESS_RTOL)
-    print(f"train {arch} at AdamW {WITNESS_OPT}, {steps} steps from the same params (2 layers, "
-          f"B 1 x S 128): losses {({k: [round(x, 4) for x in v] for k, v in losses.items()})}; "
+    print(f"train {arch} at AdamW {WITNESS_OPT}, {steps} steps from the same params "
+          f"({layers} layers, B 1 x S 128): losses {({k: [round(x, 4) for x in v] for k, v in losses.items()})}; "
           f"largest relative deviation from the float32 CPU run {dev} (limits float32 "
           f"{WITNESS_RTOL['float32']}, bf16 {WITNESS_RTOL['bfloat16']})")
     check(dev["float32_card"] <= WITNESS_RTOL["float32"],
@@ -2669,6 +2866,35 @@ def card_vs_cpu(torch, arch: str, steps: int) -> dict:
     check(dev["bfloat16_card"] <= WITNESS_RTOL["bfloat16"],
           f"train {arch}: the bf16 card trainer parts from the float32 CPU's: {losses}")
     return out
+
+
+def train_launches(cfg, steps: int) -> tuple[dict, str]:
+    """The kernel launches ``steps`` trainer steps of ``cfg`` make, and the
+    rule they follow.  Under full remat (``transformer.remat``) a layer's
+    forward runs twice, once in the forward pass and again before its
+    backward, and its backward once: so every kernel of a rematerialised
+    layer launches its forward twice a step and its backward once.
+    zamba2's shared attention block is applied outside remat
+    (``zamba2.py:81`` rematerialises only the Mamba2 blocks): its flash
+    forward and backward launch once an application."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":   # xLSTM: the sLSTM layers run plain ops
+        from repro_torch.models.xlstm import _group_counts
+        G, M, _ = _group_counts(cfg)
+        return ({"mlstm": 2 * G * M * steps, "mlstm_backward": G * M * steps},
+                f"{G * M} mLSTM layers, each rematerialised: its kernel twice a step, its "
+                f"backward once; the sLSTM layers launch none")
+    if cfg.family == "hybrid":   # zamba2
+        apps = L // cfg.ssm.attn_every
+        return ({"mamba2_ssd": 2 * L * steps, "mamba2_ssd_backward": L * steps,
+                 "flash_attention": apps * steps, "flash_attention_backward": apps * steps},
+                f"{L} Mamba2 blocks, each rematerialised: the SSD kernel twice a step, its "
+                f"backward once; {apps} application(s) of the shared attention outside "
+                f"remat: flash forward and backward once each")
+    return ({"flash_attention": 2 * L * steps, "flash_attention_backward": L * steps,
+             "grouped_matmul": 12 * L * steps if cfg.moe else 0},
+            "flash forward twice a layer under full remat, its backward once; 3 grouped-matmul "
+            "forwards a MoE layer, twice, and 2 backward launches each")
 
 
 def train_full(torch, arch: str, layers: int, steps: int) -> dict:
@@ -2736,14 +2962,10 @@ def train_full(torch, arch: str, layers: int, steps: int) -> dict:
         dom.shutdown()
     check(last["step"] == steps, f"train {arch}: ran {last['step']} of {steps} steps")
     losses = [h["loss"] for h in tr.metrics_history[:steps]]
-    want = {"flash_attention": 2 * layers * steps, "flash_attention_backward": layers * steps,
-            "grouped_matmul": 12 * layers * steps if cfg.moe else 0}
+    want, rule = train_launches(cfg, steps)
     print(f"train {arch} ({layers} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}, {steps} steps "
           f"through train/run_steps, AdamW {TRAIN_OPT}): losses "
-          f"{[round(x, 4) for x in losses]}; launches "
-          f"{counts}, expected {want} (flash forward twice a layer under full remat, its "
-          f"backward once; 3 grouped-matmul forwards a MoE layer, twice, and 2 backward "
-          f"launches each)")
+          f"{[round(x, 4) for x in losses]}; launches {counts}, expected {want} ({rule})")
     check(losses[-1] < losses[0], f"train {arch}: the loss did not fall: {losses}")
     for name, n in counts.items():
         check(n == want.get(name, 0), f"train {arch}: {name} launched {n} times, not "
@@ -3206,8 +3428,8 @@ def main() -> int:
     print(f"phase 8a (kernel gradients) took {time.perf_counter() - t8:.1f} s")
     train = {"card": smi[0]}
     t0 = time.perf_counter()
-    for arch, steps in (("internlm2-20b", WITNESS_STEPS), ("olmoe-1b-7b", 0)):
-        train[f"card_vs_cpu {arch}"] = card_vs_cpu(torch, arch, steps)
+    for arch, steps, layers in CARD_VS_CPU:
+        train[f"card_vs_cpu {arch}"] = card_vs_cpu(torch, arch, steps, layers)
         release(torch)
     print(f"phase 8b/8c card vs CPU took {time.perf_counter() - t0:.1f} s")
     for arch, layers, steps in TRAINED:

@@ -251,26 +251,61 @@ class SocketEndpoint(CommBackend):
                     pass
 
 
+def _probe_socket(host: str) -> socket.socket:
+    """A socket bound to a free port the kernel picks (no SO_REUSEADDR)."""
+    probe = socket.socket()
+    probe.bind((host, 0))
+    return probe
+
+
+def _reserve_ports(host: str, count: int) -> tuple[int, list]:
+    """Reserve ``count`` contiguous ports and return (first port, the
+    sockets holding them).  A probe socket keeps the port just below the
+    region (bound without SO_REUSEADDR); every port of the region is bound,
+    not listening, with SO_REUSEADDR.  Endpoints (SO_REUSEADDR) bind and
+    listen over a holder, in this process or another; a connect() never
+    takes a bound port as its ephemeral port; and another fabric's region
+    that overlaps this one meets the probe socket or a listener and fails
+    to bind, so it probes again."""
+    while True:
+        lock = _probe_socket(host)
+        first = lock.getsockname()[1] + 1
+        held = [lock]
+        try:
+            if first + count > 65536:
+                raise OSError("region past the port range")
+            for port in range(first, first + count):
+                hold = socket.socket()
+                held.append(hold)
+                hold.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                hold.bind((host, port))
+        except OSError:
+            for sock in held:
+                sock.close()
+            continue
+        return first, held
+
+
 class SocketFabric(Fabric):
     """Same-host fabric over loopback TCP (endpoints may live anywhere that
-    can reach ``host:base_port+i``)."""
+    can reach ``host:base_port+i``).
+
+    Without a ``base_port`` the fabric reserves its region
+    (:func:`_reserve_ports`) and holds it until :meth:`close`: the
+    reference takes a probed port + 1000 and binds nothing, so another
+    process's connection or fabric can take a port of the region before its
+    endpoint listens (``Address already in use`` under ``pytest -n 6``)."""
 
     #: ports reserved past the initial node count so add_node stays inside
-    #: the probed free region
+    #: the reserved region
     GROW_HEADROOM = 64
 
     def __init__(self, num_nodes: int, base_port: int = 0, host: str = "127.0.0.1"):
         self.num_nodes = num_nodes
         self.host = host
-        while base_port == 0:
-            # pick a free contiguous region by binding a probe socket;
-            # re-probe if the region would run past the port range
-            probe = socket.socket()
-            probe.bind((host, 0))
-            candidate = probe.getsockname()[1] + 1000
-            probe.close()
-            if candidate + num_nodes + self.GROW_HEADROOM <= 65535:
-                base_port = candidate
+        self._held: list[socket.socket] = []
+        if base_port == 0:
+            base_port, self._held = _reserve_ports(host, num_nodes + self.GROW_HEADROOM)
         self.base_port = base_port
         self._endpoints: dict[int, SocketEndpoint] = {}
         self._nodes: set[int] = set(range(num_nodes))
@@ -307,3 +342,6 @@ class SocketFabric(Fabric):
     def close(self) -> None:
         for ep in self._endpoints.values():
             ep.close()
+        for sock in self._held:
+            sock.close()
+        self._held = []

@@ -46,6 +46,17 @@ does about it:
 
 The plain version keeps the reference's chunk rule: the chunk shrinks
 until it divides S.
+
+Under autograd (grad enabled and an input that requires grad) a CUDA call
+with no initial state goes through :class:`_SSD`, whose backward launches
+``csrc/mamba2_ssd_bwd.cu`` (float32 on the CUDA cores: h at chunk starts
+recomputed in float32, dh carried over the chunks in reverse, dB and dC
+summed over each group's heads and dA, dD over the sequences in a fixed
+order, no atomics; see the source's note).  The backward covers the
+gradient of y: a call under grad with an initial state, or whose loss
+reaches the final state, raises (ROADMAP Queue 1 item 12f).  Otherwise a
+call launches the forward exactly as before, so serving's launches and
+times do not move.
 """
 
 from __future__ import annotations
@@ -65,15 +76,64 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_ssd_chunked": [_P] * 14 + [_I] * 10 + [_L] * 15 + [_I, _P],
 }
+_BWD_SIGNATURES = {
+    "ham_ssd_bwd_workspace": [_I] * 7 + [_P],
+    "ham_ssd_bwd": [_P] * 14 + [_I] * 8 + [_P, _I, _P],
+}
 
 #: kernel launches made by :func:`ssd_chunked` (plain calls not counted)
 launches = 0
+#: backward launches (:func:`ssd_chunked_backward`), one per gradient
+launches_backward = 0
 
 
 def ssd_chunked_plain(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
     """The plain PyTorch version of :func:`ssd_chunked`: the port's
     ``models.mamba2.ssd_chunked`` with the chunk shrunk to divide S."""
     return ssd_chunk_ref(x, dt, A, Bm, Cm, D, state, chunk=divisor_chunk(chunk, x.shape[1]))
+
+
+def ssd_chunked_backward_plain(x, dt, A, Bm, Cm, D, dy, *, chunk=256):
+    """The plain version of :func:`ssd_chunked_backward`: autograd through
+    :func:`ssd_chunked_plain` with no initial state."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm, D)]
+        y, _ = ssd_chunked_plain(*leaves, chunk=chunk)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def ssd_chunked_backward(x, dt, A, Bm, Cm, D, dy, *, chunk=256):
+    """(dx, ddt, dA, dBm, dCm, dD) of :func:`ssd_chunked` at (x, dt, A, Bm,
+    Cm, D) with no initial state, for the gradient ``dy`` of y; each in its
+    input's dtype and shape.  CPU tensors take the plain version; CUDA
+    tensors launch the backward kernel."""
+    if x.device.type == "cpu":
+        return ssd_chunked_backward_plain(x, dt, A, Bm, Cm, D, dy, chunk=chunk)
+    return _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk)
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel with no initial state, the backward kernel as its
+    gradient.  Outputs y and the final h; the final state's gradient is not
+    taken (item 12f): a loss that reaches it raises."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        ctx.set_materialize_grads(False)
+        y, h = _launch(x, dt, A, Bm, Cm, D, None, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        if dh is not None:
+            raise NotImplementedError(
+                "ssd: the gradient of the final state has no kernel on the card yet "
+                "(ROADMAP Queue 1 item 12f); only y's gradient is taken")
+        if dy is None:
+            return (None,) * 7
+        return (*_launch_backward(*ctx.saved_tensors, dy, ctx.chunk), None)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
@@ -85,11 +145,17 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
 
     CPU tensors take the plain version (chunk shrunk to divide S); CUDA
     tensors launch the kernel with chunk ``min(chunk, S)`` and a masked
-    ragged tail.
+    ragged tail; under autograd they go through :class:`_SSD` (no
+    ``state``).
     """
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, state, chunk=chunk)
-    _build.no_backward("mamba2_ssd", "12c", x, dt, A, Bm, Cm, D, state)
+    if _build.grad_wanted(x, dt, A, Bm, Cm, D, state):
+        if state is not None:
+            raise NotImplementedError(
+                "ssd under autograd takes no initial state on the card yet (ROADMAP Queue 1 "
+                "item 12f); call it under torch.no_grad() or on CPU tensors")
+        return _SSD.apply(x, dt, A, Bm, Cm, D, chunk)
     return _launch(x, dt, A, Bm, Cm, D, state, chunk)
 
 
@@ -164,3 +230,43 @@ def _scratch(chunks, Lp, device):
         ptrs.append(at)
         at += n
     return buf, ptrs
+
+
+def _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk):
+    """Launch the backward kernel: (dx, ddt, dA, dBm, dCm, dD), new
+    contiguous tensors; one float32 scratch buffer (csrc/mamba2_ssd_bwd.cu's
+    layout)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy.stride(-1) != 1 or not _build._aligned(dy):
+        dy = dy.contiguous()
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    dBm, dCm = (torch.empty((B, S, G, N), dtype=Bm.dtype, device=x.device) for _ in range(2))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ddt, dA, dD = torch.empty((B, S, H), **f32), torch.empty(H, **f32), torch.empty(H, **f32)
+    dtype = _build.check_inputs("ssd backward", (x, Bm, Cm, dy, dx, dBm, dCm))
+    _build.check_aux("ssd backward", x, (dt, A, D), torch.float32, "dt, A and D")
+    if (Bm.shape != (B, S, G, N) or Cm.shape != Bm.shape or dt.shape != (B, S, H)
+            or A.shape != (H,) or D.shape != (H,) or H % G or dy.shape != x.shape):
+        raise ValueError(f"ssd backward shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} dy {tuple(dy.shape)}")
+    if not (A.is_contiguous() and D.is_contiguous()):
+        raise ValueError("ssd A and D must be contiguous")
+    if chunk < 1:
+        raise ValueError(f"ssd chunk must be positive, got {chunk}")
+    L = min(chunk, S)
+    lib = _build.library("mamba2_ssd_bwd", _BWD_SIGNATURES)
+    nbytes = ctypes.c_longlong()
+    _build.check(lib, lib.ham_ssd_bwd_workspace(B, S, H, G, N, P, L, ctypes.byref(nbytes)),
+                 "ssd backward")
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+    strided = (x, Bm, Cm, dy, dt, dx, dBm, dCm, ddt)
+    strides = (ctypes.c_longlong * 27)(*(s for t in strided for s in t.stride()[:3]))
+    err = lib.ham_ssd_bwd(
+        *(t.data_ptr() for t in (x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dBm, dCm, dD)),
+        work.data_ptr(), B, S, H, G, N, P, L, dtype, ctypes.addressof(strides),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "ssd backward")
+    _build.count(__name__, "launches_backward")
+    return dx, ddt, dA, dBm, dCm, dD

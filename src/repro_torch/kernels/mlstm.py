@@ -40,6 +40,17 @@ the upcast.  The carried state and every accumulator are float32.
 
 The plain version keeps the reference's chunk rule: the chunk shrinks
 until it divides S.
+
+Under autograd (grad enabled and an input that requires grad) a CUDA call
+with no initial state goes through :class:`_MLSTM`, whose backward launches
+``csrc/mlstm_bwd.cu`` (float32 on the CUDA cores: the states at chunk
+starts recomputed in float32, the stabilisers held constant, the chunks
+walked in reverse carrying d[C | n]; no atomics, so a step's gradients
+repeat bit for bit; see the source's note).  The backward covers the
+gradient of h: a call under grad with an initial state, or whose loss
+reaches the final state, raises (ROADMAP Queue 1 item 12f).  Otherwise a
+call launches the forward exactly as before, so serving's launches and
+times do not move.
 """
 
 from __future__ import annotations
@@ -55,12 +66,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_mlstm_chunked": [_P] * 17 + [_I] * 9 + [_L] * 18 + [_I, _P],
 }
+_BWD_SIGNATURES = {
+    "ham_mlstm_bwd_workspace": [_I] * 6 + [_P],
+    "ham_mlstm_bwd": [_P] * 12 + [_I] * 7 + [_P, _I, _P],
+}
 _TILE = 64  # csrc/mlstm.cu kT: the chunk is padded to a multiple of it
 _TC_DK, _TC_DV = 256, 256  # csrc/mlstm.cu kScoreK, kDvT: the tensor-core route's tiles
 _TC_MAX_DK = 512            # csrc/mlstm.cu kTcMaxDk: a block's q rows sit in shared memory
 
 #: kernel launches made by :func:`mlstm_chunked_heads` (plain calls not counted)
 launches = 0
+#: backward launches (:func:`mlstm_chunked_heads_backward`), one per gradient
+launches_backward = 0
 
 
 def mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state=None, *, chunk):
@@ -69,6 +86,52 @@ def mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state=None, *, chunk):
     h, st = mlstm_chunk_ref(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
                             chunk=divisor_chunk(chunk, q.shape[2]))
     return t(h), st
+
+
+def mlstm_chunked_heads_backward_plain(q, k, v, i_pre, f_pre, dh, *, chunk):
+    """The plain version of :func:`mlstm_chunked_heads_backward`: autograd
+    through :func:`mlstm_chunked_heads_plain` with no initial state."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, i_pre, f_pre)]
+        h, _ = mlstm_chunked_heads_plain(*leaves, chunk=chunk)
+        return torch.autograd.grad(h, leaves, dh)
+
+
+def mlstm_chunked_heads_backward(q, k, v, i_pre, f_pre, dh, *, chunk):
+    """(dq, dk, dv, di, df) of :func:`mlstm_chunked_heads` at (q, k, v,
+    i_pre, f_pre) with no initial state, for the gradient ``dh`` of h; each
+    in its input's dtype, q/k/v's in the model's (B, S, H, d) layout and the
+    gates' in (B, S, H) (returned as (B, H, S, ...) views).  CPU tensors
+    take the plain version; CUDA tensors launch the backward kernel."""
+    if q.device.type == "cpu":
+        return mlstm_chunked_heads_backward_plain(q, k, v, i_pre, f_pre, dh, chunk=chunk)
+    return _launch_backward(q, k, v, i_pre, f_pre, dh, chunk)
+
+
+class _MLSTM(torch.autograd.Function):
+    """The forward kernel with no initial state, the backward kernel as its
+    gradient.  Outputs h and the final (C, n, m); the final state's gradient
+    is not taken (item 12f): a loss that reaches it raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, chunk):
+        ctx.set_materialize_grads(False)
+        B, H, S, _ = q.shape
+        out = torch.empty((B, S, H, v.shape[-1]), dtype=v.dtype, device=v.device)
+        h, (C, n, m) = _launch(q, k, v, i_pre, f_pre, None, chunk, out.transpose(1, 2))
+        ctx.save_for_backward(q, k, v, i_pre, f_pre)
+        ctx.chunk = chunk
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        if dC is not None or dn is not None or dm is not None:
+            raise NotImplementedError(
+                "mlstm: the gradient of the final state has no kernel on the card yet "
+                "(ROADMAP Queue 1 item 12f); only h's gradient is taken")
+        if dh is None:
+            return (None,) * 6
+        return (*_launch_backward(*ctx.saved_tensors, dh, ctx.chunk), None)
 
 
 def mlstm_chunked_plain(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
@@ -98,12 +161,21 @@ def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
 
     CPU tensors take the plain version (chunk shrunk to divide S); CUDA
     tensors launch the kernel with chunk ``min(chunk, S)`` and a masked
-    ragged tail.
+    ragged tail; under autograd they go through :class:`_MLSTM` (no
+    ``state``, no ``out``: writing into ``out`` would cut the graph).
     """
     if q.device.type == "cpu":
         h, st = mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state, chunk=chunk)
         return (h if out is None else out.copy_(h)), st
-    _build.no_backward("mlstm", "12b", q, k, v, i_pre, f_pre, *(state or ()))
+    if _build.grad_wanted(q, k, v, i_pre, f_pre, *(state or ())):
+        if state is not None:
+            raise NotImplementedError(
+                "mlstm under autograd takes no initial state on the card yet (ROADMAP "
+                "Queue 1 item 12f); call it under torch.no_grad() or on CPU tensors")
+        if out is not None:
+            raise ValueError("mlstm under autograd returns a new h; out= would cut the graph")
+        h, C, n, m = _MLSTM.apply(q, k, v, i_pre, f_pre, chunk)
+        return h, (C, n, m)
     return _launch(q, k, v, i_pre, f_pre, state, chunk, out)
 
 
@@ -167,3 +239,42 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
     )
     _build.check(lib, err, "mlstm")
     return out, (C, n, m)
+
+
+def _launch_backward(q, k, v, i_pre, f_pre, dh, chunk):
+    """Launch the backward kernel: (dq, dk, dv) in the model's (B, S, H, d)
+    layout and (di, df) in (B, S, H), returned as (B, H, S, ...) views; one
+    float32 scratch buffer (csrc/mlstm_bwd.cu's layout)."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    if dh.stride(-1) != 1 or not _build._aligned(dh):
+        dh = dh.contiguous()
+    heads = lambda t: torch.empty((B, S, H, t.shape[-1]), dtype=t.dtype,
+                                  device=t.device).transpose(1, 2)
+    dq, dk_, dv_ = heads(q), heads(k), heads(v)
+    di, df = (torch.empty((B, S, H), dtype=t.dtype, device=t.device).transpose(1, 2)
+              for t in (i_pre, f_pre))
+    dtype = _build.check_inputs("mlstm backward", (q, k, v, dh, dq, dk_, dv_))
+    _build.check_aux("mlstm backward", q, (i_pre, f_pre), q.dtype, "gates")
+    if (k.shape != q.shape or v.shape != (B, H, S, dv) or dh.shape != v.shape
+            or i_pre.shape != (B, H, S) or f_pre.shape != (B, H, S)):
+        raise ValueError(f"mlstm backward shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} dh {tuple(dh.shape)} gates {tuple(i_pre.shape)}")
+    if chunk < 1:
+        raise ValueError(f"mlstm chunk must be positive, got {chunk}")
+    L = min(chunk, S)
+    lib = _build.library("mlstm_bwd", _BWD_SIGNATURES)
+    nbytes = ctypes.c_longlong()
+    _build.check(lib, lib.ham_mlstm_bwd_workspace(B, H, S, dk, dv, L, ctypes.byref(nbytes)),
+                 "mlstm backward")
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
+    tensors = (q, k, v, i_pre, f_pre, dh, dq, dk_, dv_, di, df)
+    strides = (ctypes.c_longlong * 33)(*(s for t in tensors for s in t.stride()[:3]))
+    err = lib.ham_mlstm_bwd(
+        *(t.data_ptr() for t in tensors), work.data_ptr(), B, H, S, dk, dv, L, dtype,
+        ctypes.addressof(strides), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "mlstm backward")
+    _build.count(__name__, "launches_backward")
+    return dq, dk_, dv_, di, df

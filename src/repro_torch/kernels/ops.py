@@ -15,14 +15,15 @@ once as the reference model does.
 
 A CPU tensor takes the kernel's plain version; a CUDA tensor launches the
 kernel (each kernel module keeps its launch counter).  Under autograd a
-CUDA call of flash attention or the grouped matmul records its backward
-kernels; the mLSTM, SSD and decode kernels have none yet and raise.
+CUDA call of flash attention, the grouped matmul, the mLSTM or the SSD
+records its backward kernels; the decode kernels have none yet and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import mlstm as _mlstm
@@ -77,12 +78,17 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state=None, *, chunk=256):
     """Model layout: q, k (B, S, H, dk); v (B, S, H, dv); gates (B, S, H);
     state (C (B,H,dk,dv), n (B,H,dk), m (B,H)) or None.  Returns
     (h (B, S, H, dv), (C, n, m)).  The kernel takes ``chunk`` with a masked
-    ragged tail; the plain version shrinks it to divide S."""
-    h = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    ragged tail; the plain version shrinks it to divide S.  Without autograd
+    the kernel writes h into a tensor of the model's layout; under autograd
+    h is the autograd Function's output (a write through ``out`` would cut
+    the graph)."""
     t = lambda a: a.transpose(1, 2)
-    _, st = _mlstm.mlstm_chunked_heads(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
-                                       chunk=chunk, out=t(h))
-    return h, st
+    out = None
+    if not _build.grad_wanted(q, k, v, i_pre, f_pre, *(state or ())):
+        out = t(torch.empty(v.shape, dtype=v.dtype, device=v.device))
+    h, st = _mlstm.mlstm_chunked_heads(t(q), t(k), t(v), t(i_pre), t(f_pre), state,
+                                       chunk=chunk, out=out)
+    return t(h), st
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):

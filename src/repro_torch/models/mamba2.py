@@ -25,6 +25,9 @@ Differences from the reference, all forced by PyTorch or chosen for memory:
   shrinking the chunk until it divides S;
 * ``conv_in`` is a view of the input projection (the reference concatenates
   the same three slices, which lie side by side).
+* the intra-chunk decay is masked before ``exp`` (the reference masks after
+  it: where an exponent above the diagonal overflows, its gradient is
+  0 * inf = NaN, which a zamba2-2.7b chunk of 128 positions already reaches).
 
 The sharding hooks (``sharder``, ``mamba2_param_rules``) are not ported.
 """
@@ -75,7 +78,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk: int):
     for c in range(nc):
         xi, dti, Li, Bi, Ci = xc[:, :, c], dtc[:, :, c], Lc[:, :, c], Bh[:, :, c], Ch[:, :, c]
         cb = Ci @ Bi.transpose(-1, -2)                              # (B,H,t,s)
-        decay = torch.exp(Li[..., :, None] - Li[..., None, :])
+        # masked before exp: above the diagonal the exponent is positive and
+        # may overflow, and autograd of exp there would be 0 * inf = NaN
+        decay = torch.exp(torch.where(tri, Li[..., :, None] - Li[..., None, :], -math.inf))
         smat = torch.where(tri, cb * decay * dti[..., None, :], 0.0)
         y = smat @ xi
         y = y + torch.exp(Li)[..., None] * (Ci @ h)

@@ -23,7 +23,10 @@ Differences from the reference, all forced by PyTorch or chosen for memory:
   their cache lanes (the reference returns a new cache);
 * the prefill's mLSTM chunk is ``min(chunk_size, S)``: the CUDA kernel masks
   a ragged last chunk, and the CPU path keeps the reference's rule of
-  shrinking the chunk until it divides S.
+  shrinking the chunk until it divides S;
+* the intra-chunk weights e^{a_s - g_t} are masked before ``exp`` (the
+  reference masks after it, and where an exponent above the diagonal
+  overflows its gradient is 0 * inf = NaN).
 
 The sharding hooks (``sharder``, ``xlstm_param_rules``) are not ported.
 """
@@ -124,7 +127,8 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state=None, *, chunk: int):
         qi, ki, vi, Fi, ai = qc[:, :, c], kc[:, :, c], vc[:, :, c], Fc[:, :, c], a[:, :, c]
         g = torch.maximum(m[..., None], a_cmax[:, :, c])      # (B,H,L)
         # intra-chunk: exp(a_s - g_t)-weighted scores
-        w_ts = torch.exp(ai[..., None, :] - g[..., :, None])
+        # masked before exp: above the diagonal a_s - g_t may be positive
+        w_ts = torch.exp(torch.where(tri, ai[..., None, :] - g[..., :, None], -math.inf))
         scores = qi @ ki.transpose(-1, -2)
         smat = torch.where(tri, scores * w_ts, 0.0)
         num = smat @ vi

@@ -656,3 +656,62 @@ def test_parked_receiver_survives_chaos_delay_reorder():
         b.close()
     finally:
         chaos.close()
+
+
+# -- the socket fabric's reserved port region ---------------------------------------
+
+
+def test_socket_fabric_holds_its_region():
+    """The region stays reserved until the fabric closes: a plain bind of
+    one of its ports fails, while the fabric's endpoint binds and listens
+    there."""
+    import socket
+
+    fab = SocketFabric(2)
+    try:
+        outsider = socket.socket()
+        with pytest.raises(OSError):
+            outsider.bind((fab.host, fab.base_port + 1))
+        outsider.close()
+        a, b = fab.endpoint(0), fab.endpoint(1)
+        a.send(1, b"held")
+        assert b.recv(timeout=5) == b"held"
+    finally:
+        fab.close()
+    assert not fab._held
+
+
+def test_socket_fabric_skips_a_port_held_inside_the_probed_region(monkeypatch):
+    """A port inside the probed region already taken by another socket (a
+    listener, as another fabric's endpoint would be) makes the fabric probe
+    again, and the fabric it builds works; the reference's probed port +
+    1000 would have handed that port to an endpoint, which then fails with
+    ``Address already in use``."""
+    import socket
+
+    from repro_torch.comm import socket as sock_mod
+
+    lock = socket.socket()
+    lock.bind(("127.0.0.1", 0))
+    taken = socket.socket()
+    taken.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        taken.bind(("127.0.0.1", lock.getsockname()[1] + 2))
+    except OSError:
+        pytest.skip("the port next to the probe is in use")
+    taken.listen(1)
+    probes = [lock]
+    real = sock_mod._probe_socket
+    monkeypatch.setattr(sock_mod, "_probe_socket",
+                        lambda host: probes.pop() if probes else real(host))
+    fab = SocketFabric(3)
+    try:
+        assert not probes, "the fabric did not take the planted probe"
+        region = range(fab.base_port, fab.base_port + 3 + SocketFabric.GROW_HEADROOM)
+        assert taken.getsockname()[1] not in region
+        eps = [fab.endpoint(i) for i in range(3)]
+        eps[0].send(2, b"x")
+        assert eps[2].recv(timeout=5) == b"x"
+    finally:
+        fab.close()
+        taken.close()

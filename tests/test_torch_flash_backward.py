@@ -19,9 +19,11 @@
   launches swapped for the plain versions, and the grouped-matmul
   backward's transposed, padded operands against the plain autograd
   (float32 2e-5, a ragged capacity included).
-* the mLSTM, SSD and decode wrappers raise under grad for a non-CPU
-  request (``meta`` tensors, as the dispatch tests of
-  ``test_torch_package.py``), before any launch.
+* the decode wrappers raise under grad for a non-CPU request (``meta``
+  tensors, as the dispatch tests of ``test_torch_package.py``), before any
+  launch; the mLSTM and SSD wrappers take their autograd Functions there
+  (their backward kernels are held in ``test_torch_mlstm_backward.py`` and
+  ``test_torch_ssd_backward.py``).
 """
 
 import math
@@ -288,21 +290,11 @@ def _meta(*shape, grad=True):
     return torch.empty(shape, device="meta").requires_grad_(grad)
 
 
-@pytest.mark.parametrize("kernel", ["mlstm", "mamba2_ssd", "decode_attention",
-                                    "decode_attention_q8"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_q8"])
 def test_kernels_without_backward_raise_under_grad(kernel):
-    item = {"mlstm": "12b", "mamba2_ssd": "12c"}.get(kernel, "12d")
     before = _counts()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if kernel == "mlstm":
-            qk = _meta(2, 37, 2, 16)
-            ops.mlstm_chunked(qk, qk, _meta(2, 37, 2, 32), _meta(2, 37, 2), _meta(2, 37, 2),
-                              chunk=8)
-        elif kernel == "mamba2_ssd":
-            bc = _meta(2, 37, 2, 64)
-            ops.ssd_chunked(_meta(2, 37, 4, 64), _meta(2, 37, 4), _meta(4), bc, bc, _meta(4),
-                            chunk=8)
-        elif kernel == "decode_attention":
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        if kernel == "decode_attention":
             kv = _meta(2, 16, 2, 32, grad=False)
             ops.decode_attention_bhsd(_meta(2, 1, 8, 32), kv, kv,
                                       torch.empty(2, dtype=torch.int32, device="meta"))
@@ -336,4 +328,38 @@ def test_flash_and_grouped_matmul_take_the_autograd_route_under_grad(monkeypatch
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA"):
             ops.flash_attention_bhsd(q, kv, kv)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("kernel", ["mlstm", "mamba2_ssd"])
+def test_scan_kernels_take_the_autograd_route_under_grad(kernel, monkeypatch):
+    """A non-CPU mLSTM or SSD call under grad with no initial state goes
+    through its autograd Function (the mLSTM's without ``out=``: the model
+    layout's h is the Function's output), and counts nothing before it
+    launches; without grad it launches as before (raising here, where there
+    is no card)."""
+    seen = []
+    if kernel == "mlstm":
+        def fake(*a):
+            seen.append(a[-1])
+            return (torch.empty(a[2].shape, device="meta"), torch.empty(1, device="meta"),
+                    torch.empty(1, device="meta"), torch.empty(1, device="meta"))
+
+        monkeypatch.setattr(mlstm._MLSTM, "apply", staticmethod(fake))
+        qk, v, gates = _meta(2, 37, 2, 16), _meta(2, 37, 2, 32), _meta(2, 37, 2)
+        h, _ = ops.mlstm_chunked(qk, qk, v, gates, gates, chunk=8)
+        assert h.shape == (2, 37, 2, 32)
+        call = lambda: ops.mlstm_chunked(qk, qk, v, gates, gates, chunk=8)
+    else:
+        monkeypatch.setattr(ssd._SSD, "apply",
+                            staticmethod(lambda *a: seen.append(a[-1]) or (a[0], None)))
+        bc = _meta(2, 37, 1, 64)
+        args = (_meta(2, 37, 4, 64), _meta(2, 37, 4), _meta(4), bc, bc, _meta(4))
+        ops.ssd_chunked(*args, chunk=8)
+        call = lambda: ops.ssd_chunked(*args, chunk=8)
+    assert seen == [8]
+    before = _counts()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     assert _counts() == before
