@@ -82,17 +82,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``(a + b).cpu()`` and hold a CUDA tensor put into a buffer, and the shm
    worker answers again after a kill and a respawn; every worker not killed
    on purpose leaves on the shutdown message with exit code 0;
-8. training on the card: 8a holds the flash-attention backward kernel
-   against autograd through the plain attention (internlm2-20b's,
-   zamba2's d 80, whisper's encoder and cross, a window, a ragged length
-   and d 192, float32 and bfloat16; repeated calls bit for bit), the
+8. training on the card: 8a holds the flash-attention backward kernel,
+   given the row log-sum-exp the forward writes (itself held against the
+   plain one), against autograd through the plain attention
+   (internlm2-20b's, zamba2's d 80, whisper's encoder and cross, a window,
+   a ragged length and d 192, float32 on the CUDA cores and bfloat16 on
+   the tensor cores; repeated calls bit for bit), times the forward with
+   and without its LSE output at phase 3's shapes, holds the
    grouped-matmul backward (olmoe's prefill, a ragged capacity) against
    its plain version, and the mLSTM and SSD backward kernels against
    autograd through their plain chunked forms (xlstm-1.3b's and
    zamba2-2.7b's training shapes and S 509, float32 and bfloat16, each
    limit below what a backward skipping one chunk reads; repeated calls
    bit for bit), times them beside bound, plain and the PyTorch yardstick
-   where one exists, and checks that the decode ops raise under grad; 8b
+   where one exists (the mLSTM's bf16 call beside its CUDA-core route, and
+   each backward's device time by kernel), and checks that the decode ops
+   raise under grad; 8b
    holds one step's float32 gradients card against CPU (B 1 x S 128) of
    internlm2-20b and olmoe-1b-7b (2 layers), xlstm-1.3b (8 layers: one
    group of 7 mLSTM + 1 sLSTM) and zamba2-2.7b (6 Mamba2 blocks, one
@@ -270,7 +275,9 @@ KERNELS = {
     "flash_attention_backward": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
-        "variant": "backward (dq, dk, dv) of the flash kernel, for training on the card",
+        "variant": "backward (dq, dk, dv) of the flash kernel, for training on the card, from "
+                   "the row log-sum-exp the forward saves; bf16 on the tensor cores (mma.sync), "
+                   "float32 on the CUDA cores",
     },
     "grouped_matmul": {
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -289,7 +296,9 @@ KERNELS = {
     "mlstm_backward": {
         "source": "src/repro_torch/kernels/csrc/mlstm_bwd.cu",
         "replaces": "src/repro/kernels/mlstm.py:34",
-        "variant": "backward (dq, dk, dv, di, df) of the mLSTM kernel, for training on the card",
+        "variant": "backward (dq, dk, dv, di, df) of the mLSTM kernel, for training on the card; "
+                   "bf16 on the tensor cores (mma.sync, csrc/tile_bf16.cuh), float32 on the "
+                   "CUDA cores (csrc/tile_f32.cuh)",
     },
     "mamba2_ssd_backward": {
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
@@ -590,16 +599,42 @@ def ssd_case(torch, B, S, H, G, chunk, with_state, views, dtype, seed):
     return xs, state, got, want
 
 
-def passes_ms(torch, fn, passes) -> dict:
-    """Device ms per call of ``fn`` in each of its kernels whose names
-    contain one of ``passes`` (torch.profiler over 10 calls; a window that
-    recorded no device time, seen once on the card, is run again)."""
-    top = profile_window(torch, fn, 10, windows=3)["top_kernels_ms_per_call"]
-    return {p: sum(ms for k, ms in top.items() if p in k) for p in passes}
-
-
 MLSTM_PASSES = ("gates_kernel", "state_tc", "output_tc")
 SSD_PASSES = ("chunk_state_tc", "combine_states", "output_tc")
+# the mLSTM backward's kernels by route (csrc/mlstm_bwd.cu), as the profiler
+# names them ("<" ends a templated name, so walk_fwd< is not walk_fwd_tc)
+MLSTM_BWD_TC = ("gates_scan", "gates_exp", "prep_pos_tc", "walk_fwd_tc", "rows_num_tc",
+                "prep_g_tc", "rows_dq_tc", "walk_bwd_tc", "dv_tc", "dk_tc", "gates_bwd")
+MLSTM_BWD_CC = ("gates_scan", "gates_exp", "walk_fwd<", "p_tiles", "num<", "rows<", "g_fill",
+                "ds_tiles", "walk_bwd<", "dq_tiles", "dk_tiles", "dv_tiles", "gates_bwd")
+
+
+# the flash backward's kernels (csrc/flash_attention_bwd.cu), bf16 route
+FLASH_BWD_PASSES = ("bwd_delta", "bwd_dkdv16", "bwd_group_sum", "bwd_dq16")
+
+
+def passes_ms(torch, fn, passes, call_ms: float | None = None, calls: int = 3,
+              windows: int = 4) -> dict:
+    """Device ms per call of ``fn`` in each of its kernels whose name holds
+    one of ``passes`` (torch.profiler over ``calls`` calls, every kernel).
+    A window that recorded no device time, or whose kernels sum to less
+    than 0.8 of ``call_ms`` (the call's CUDA-event time, where given), is
+    run again: on the card, after many profiled windows in one process, the
+    profiler at times records nothing or drops kernels.  A breakdown is
+    informational, so after ``windows`` tries it is "not measured" rather
+    than a failed run."""
+    for _ in range(windows):
+        try:
+            top = profile_window(torch, fn, calls, top=32)["top_kernels_ms_per_call"]
+        except RuntimeError as e:
+            print(f"profiler window: {e}")
+            continue
+        out = {p: round(sum(ms for k, ms in top.items() if p in k), 4) for p in passes}
+        if call_ms is None or sum(out.values()) >= 0.8 * call_ms:
+            return out
+        print(f"profiler window: kernels sum to {sum(out.values()):.4f} ms of a "
+              f"{call_ms:.4f} ms call")
+    return {p: "not measured" for p in passes}
 
 
 def within(torch, got, want, tol, scale=1.0) -> tuple[float, bool]:
@@ -1038,7 +1073,8 @@ def check_kernels(torch) -> dict:
         records[key]["previous"] = {"route": "cuda cores", "ms": time_ms(   # same inputs
             torch, lambda: mlstm._launch(*heads, None, chunk, None, kernel="cuda_cores"), 20)}
         records[key]["passes_ms"] = passes_ms(
-            torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), MLSTM_PASSES)
+            torch, lambda: ops.mlstm_chunked(*xs, chunk=chunk), MLSTM_PASSES,
+            records[key]["ms"], calls=10, windows=3)
     # the evidence for the state pass's walk: at B 1, H 4, S 1024 it runs
     # 128 blocks (one per 128 x 128 tile of C, B*H = 4) that each walk the 4
     # chunks in order; a chunk-parallel grid (one block per tile and chunk)
@@ -1046,7 +1082,8 @@ def check_kernels(torch) -> dict:
     # plus an in-order combine pass over the 4 chunks' float32 updates
     xs = mlstm_case(torch, 4, 4, 256, 512, 1024, 256, False, "bfloat16", seed=12)[0]
     records["mlstm"]["passes_ms"]["state_tc, 512 blocks of one chunk (B 4, H 4, S 256)"] = (
-        passes_ms(torch, lambda: ops.mlstm_chunked(*xs, chunk=256), MLSTM_PASSES)["state_tc"])
+        passes_ms(torch, lambda: ops.mlstm_chunked(*xs, chunk=256), MLSTM_PASSES, calls=10,
+                  windows=3)["state_tc"])
 
     # SSD at zamba2-2.7b admissions of 512, 1024 and 2048 tokens (the served
     # prompt range up to max_len), empty state, x/B/C views of one conv
@@ -1079,7 +1116,7 @@ def check_kernels(torch) -> dict:
 
         rec["previous"] = {"route": "cuda cores", "ms": time_ms(torch, previous, 20)}
         rec["passes_ms"] = passes_ms(torch, lambda: ops.ssd_chunked(*xs, chunk=chunk),
-                                     SSD_PASSES)
+                                     SSD_PASSES, rec["ms"], calls=10, windows=3)
         # the host time of a call (a zamba2 admission makes 54), beside the
         # replaced route's single launch without scratch
         rec["host_us"] = host_us(torch, lambda: ops.ssd_chunked(*xs, chunk=chunk))
@@ -2124,7 +2161,7 @@ def decode_vlm(torch, steps: int = 32) -> dict:
     return stats
 
 
-def profile_window(torch, fn, n: int, windows: int = 1) -> dict:
+def profile_window(torch, fn, n: int, windows: int = 1, top: int = 10) -> dict:
     """Device time of ``n`` calls of ``fn`` (decode steps, admissions) under
     ``torch.profiler``: wall time per call, device busy time per call
     (kernel time summed over the window), device operations (kernels and
@@ -2148,7 +2185,7 @@ def profile_window(torch, fn, n: int, windows: int = 1) -> dict:
             break
         print(f"profiler window {window + 1} of {windows} recorded no device time")
     check(busy_us > 0, "the profiler saw no device time in the window")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]
     return {
         "calls": n,
         "wall_ms_per_call": 1e3 * wall / n,
@@ -2394,6 +2431,18 @@ GMM_BWD_CASES = [
     ("train_gate", 64, 1280, 2048, 1024, 1880),
     ("train_down", 64, 1280, 1024, 2048, 1881),
 ]
+# the forward's row log-sum-exp against the plain one (float32 logsumexp of
+# the same scaled, masked scores): |kernel - plain| <= LSE_ATOL; the values
+# are ~log(keys) + a few, and float32 sums over d in another order differ
+# by ~1e-6
+LSE_ATOL = 1e-3
+# phase 3's flash shapes (key, B, H, Hkv, S, Skv, d, causal), at which the
+# forward is timed with and without its LSE output
+FLASH_LSE_TIMED = [
+    ("d128", 1, 48, 8, 1024, 1024, 128, True), ("olmoe", 1, 16, 16, 1024, 1024, 128, True),
+    ("d80", 1, 32, 32, 1024, 1024, 80, True), ("whisper_encoder", 8, 20, 20, 1500, 1500, 64, False),
+    ("whisper_cross", 1, 20, 20, 448, 1500, 64, False), ("d192", 1, 96, 8, 1024, 1024, 192, True),
+]
 # (what, B, H, Hkv, S, Skv, d, causal, window): the attention shapes of the
 # trained and served configs
 FLASH_BWD_CASES = [
@@ -2464,19 +2513,21 @@ RESTART = dict(num_layers=2, d_model=512, num_heads=8, num_kv_heads=2, d_ff=1024
 
 
 def flash_grads(torch, B, H, Hkv, S, Skv, d, dtype, causal, window, seed):
-    """Model-layout q/k/v and a dO; returns (inputs, kernel grads, plain
-    grads), the grads as (B, heads, S, d) views."""
+    """Model-layout q/k/v and a dO; the forward kernel writes o and the rows'
+    log-sum-exp, as under autograd; returns (inputs, lse, kernel grads,
+    plain grads), the grads as (B, heads, S, d) views."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, dtype)
     mk = lambda *shape: torch.randn(*shape, generator=g, device=DEVICE).to(dt).transpose(1, 2)
     q, k, v, do = mk(B, S, H, d), mk(B, Skv, Hkv, d), mk(B, Skv, Hkv, d), mk(B, S, H, d)
-    o = fa.flash_attention_heads(q, k, v, causal=causal, window=window)
-    got = fa.flash_attention_heads_backward(q, k, v, o, do, causal=causal, window=window)
+    lse = fa.empty_lse(q)
+    o = fa._launch(q, k, v, causal, window, lse)
+    got = fa.flash_attention_heads_backward(q, k, v, o, do, causal=causal, window=window, lse=lse)
     want = fa.flash_attention_heads_backward_plain(q, k, v, o, do, causal=causal, window=window)
     torch.cuda.synchronize()
-    return (q, k, v, o, do), got, want
+    return (q, k, v, o, do), lse, got, want
 
 
 def grad_errs(torch, got, want):
@@ -2592,7 +2643,8 @@ def check_scan_grads(torch) -> dict:
                 mlstm.mlstm_chunked_heads_backward_plain, dh, 2, chunk, *xs,
                 chunk=chunk), want)
             again = mlstm.mlstm_chunked_heads_backward(*xs, dh, chunk=chunk)
-            shape = f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk}"
+            route = mlstm.backward_route(xs[0], xs[2], chunk)
+            shape = f"B={B} H={H} S={S} dk={dk} dv={dv} chunk={chunk} route {route}"
             err = judge("mlstm", what, shape, dt, got, want, wrong, again)
             del again, want
             if what != "train":   # timed at the training shape only
@@ -2612,6 +2664,23 @@ def check_scan_grads(torch) -> dict:
             )
             rec["bound_ms"], rec["bound_by"] = bound(
                 nbytes, B * H * mlstm_bwd_flops(S, chunk, dk, dv), dt)
+            if route == "tensor_cores":
+                # the CUDA-core route on the same inputs, timed and profiled
+                # beside the tensor-core one, pass by pass
+                cc = lambda: mlstm._launch_backward(*xs, dh, chunk, kernel="cuda_cores")
+                tcr = lambda: mlstm.mlstm_chunked_heads_backward(*xs, dh, chunk=chunk)
+                turns = [time_ms(torch, fn, 3) for fn in (cc, tcr, tcr, cc)]
+                rec["previous"] = {"route": "cuda_cores", "ms": (turns[0] + turns[3]) / 2,
+                                   "turns_ms": turns}
+                rec["passes_ms"] = {
+                    "tensor_cores": passes_ms(torch, tcr, MLSTM_BWD_TC,
+                                                     (turns[1] + turns[2]) / 2),
+                    "cuda_cores": passes_ms(torch, cc, MLSTM_BWD_CC,
+                                                   rec["previous"]["ms"])}
+                print(f"mlstm_backward {what} {dt}: tensor cores {(turns[1] + turns[2]) / 2:.3f} "
+                      f"ms, CUDA cores {rec['previous']['ms']:.3f} ms (turns "
+                      f"{[f'{t:.3f}' for t in turns]}); device ms a call by pass "
+                      f"{rec['passes_ms']}")
             records[key] = rec
             print(f"mlstm_backward {shape} {dt}: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
                   f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: the function's "
@@ -2660,6 +2729,34 @@ def check_scan_grads(torch) -> dict:
     return records
 
 
+def flash_lse_cost(torch) -> dict:
+    """The forward at phase 3's shapes (bf16) with and without its LSE
+    output, timed in turns (without, with, with, without): what saving the
+    LSE costs a training forward, and the serving build (no LSE) beside
+    phase 3's times."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for i, (key, B, H, Hkv, S, Skv, d, causal) in enumerate(FLASH_LSE_TIMED):
+        g = torch.Generator(device=DEVICE).manual_seed(40 + i)
+        mk = lambda *shape: torch.randn(*shape, generator=g, device=DEVICE).to(
+            torch.bfloat16).transpose(1, 2)
+        q, k, v = mk(B, S, H, d), mk(B, Skv, Hkv, d), mk(B, Skv, Hkv, d)
+        lse = fa.empty_lse(q)
+        plain = lambda: fa._launch(q, k, v, causal, None)
+        saving = lambda: fa._launch(q, k, v, causal, None, lse)
+        turns = [time_ms(torch, fn, 20) for fn in (plain, saving, saving, plain)]
+        out[key] = {"shape": f"B={B} H={H} Hkv={Hkv} S={S} Skv={Skv} d={d} causal={causal} "
+                             f"bfloat16",
+                    "no_lse_ms": (turns[0] + turns[3]) / 2, "lse_ms": (turns[1] + turns[2]) / 2,
+                    "turns_ms": turns}
+        print(f"flash_attention forward {key}: no lse {out[key]['no_lse_ms']:.4f} ms, with lse "
+              f"{out[key]['lse_ms']:.4f} ms (turns {[f'{t:.4f}' for t in turns]})")
+        del q, k, v, lse
+    release(torch)
+    return out
+
+
 def check_kernel_grads(torch) -> dict:
     """Phase 8a: the flash backward, the grouped-matmul backward and the
     mLSTM and SSD backward kernels against their plain versions on the
@@ -2677,28 +2774,34 @@ def check_kernel_grads(torch) -> dict:
     records = {}
     for i, (what, B, H, Hkv, S, Skv, d, causal, window) in enumerate(FLASH_BWD_CASES):
         for dt in ("bfloat16", "float32"):
-            xs, got, want = flash_grads(torch, B, H, Hkv, S, Skv, d, dt, causal, window,
-                                        seed=500 + i)
+            xs, lse, got, want = flash_grads(torch, B, H, Hkv, S, Skv, d, dt, causal, window,
+                                             seed=500 + i)
             errs = grad_errs(torch, got, want)
             q, k, v, o, do = xs
+            lse_err = max_err(torch, lse, fa.flash_attention_heads_lse_plain(
+                q, k, v, causal=causal, window=window))
             wrong = grad_errs(torch, skipped_tile_grads(torch, q, k, v, do, want, causal, window),
                               want)
             ok = max(errs) <= GRAD_TOL[dt] < min(wrong)
+            route = "tensor cores (mma.sync)" if dt == "bfloat16" else "CUDA cores"
             print(f"flash_attention_backward {what} B={B} H={H} Hkv={Hkv} S={S} Skv={Skv} "
-                  f"d={d} causal={causal} window={window} {dt}: max err / rms dq, dk, dv "
-                  f"{[f'{e:.3g}' for e in errs]}; one tile skipped "
-                  f"{[f'{e:.3g}' for e in wrong]}; limit {GRAD_TOL[dt]} between them: {ok}")
+                  f"d={d} causal={causal} window={window} {dt} ({route}): max err / rms dq, dk, "
+                  f"dv {[f'{e:.3g}' for e in errs]}; one tile skipped "
+                  f"{[f'{e:.3g}' for e in wrong]}; limit {GRAD_TOL[dt]} between them: {ok}; "
+                  f"forward lse max err {lse_err:.3g} (limit {LSE_ATOL})")
+            check(lse_err <= LSE_ATOL, f"flash_attention {what} {dt}: the saved lse disagrees "
+                                       f"with the plain one: {lse_err}")
             check(max(errs) <= GRAD_TOL[dt], f"flash_attention_backward {what} {dt} disagrees "
                                              f"with its plain version: {errs}")
             check(GRAD_TOL[dt] < min(wrong), f"flash_attention_backward {what} {dt}: the limit "
                                              f"would pass a skipped tile: {wrong}")
-            again = fa.flash_attention_heads_backward(*xs, causal=causal, window=window)
+            again = fa.flash_attention_heads_backward(*xs, causal=causal, window=window, lse=lse)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"flash_attention_backward {what} {dt}: a second call differs")
             if dt == "float32" and what != "internlm2":
                 continue
             pairs = B * H * (window_pairs(S, window) if causal else S * Skv)
-            flops = 12 * d * pairs   # five 2d products a pair, and the LSE pass's one
+            flops = 10 * d * pairs   # five 2d-deep products a pair, given the forward's lse
             nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             mask = None
@@ -2708,23 +2811,33 @@ def check_kernel_grads(torch) -> dict:
                 *leaves, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
             key = "flash_attention_backward" + ("" if what == "internlm2" else f"_{what}") + (
                 "_f32" if dt == "float32" else "")
-            reps = 3 if B * H * S * Skv > 1e8 else 10
+            reps = 3 if B * H * S * Skv > 1e8 and dt == "float32" else 10
             rec = dict(
                 max_abs_err=max(max_err(torch, a, b) for a, b in zip(got, want)),
                 ms=time_ms(torch, lambda: fa.flash_attention_heads_backward(
-                    q, k, v, o, do, causal=causal, window=window), reps),
+                    q, k, v, o, do, causal=causal, window=window, lse=lse), reps),
                 plain_ms=time_ms(torch, lambda: fa.flash_attention_heads_backward_plain(
                     q, k, v, o, do, causal=causal, window=window), 3),
                 library_ms=time_ms(torch, lambda: torch.autograd.grad(
                     ref_out, leaves, do, retain_graph=True), reps),
                 shape=f"B={B} H={H} Hkv={Hkv} S={S} Skv={Skv} d={d} {dt} causal={causal} "
-                      f"window={window}",
+                      f"window={window}, given the forward's lse; {route}",
                 library="sdpa backward (autograd.grad of scaled_dot_product_attention)",
             )
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dt)
+            if dt == "bfloat16":
+                rec["passes_ms"] = passes_ms(torch, lambda: fa.flash_attention_heads_backward(
+                    q, k, v, o, do, causal=causal, window=window, lse=lse), FLASH_BWD_PASSES,
+                    rec["ms"])
             records[key] = rec
+            print(f"flash_attention_backward {what} {dt}: {rec['ms']:.4f} ms given the lse, bound "
+                  f"{rec['bound_ms']:.4f} ({rec['bound_by']}, 10 d flops a pair), plain "
+                  f"{rec['plain_ms']:.4f}, sdpa backward {rec['library_ms']:.4f}; device ms by "
+                  f"kernel {rec.get('passes_ms')}")
             del ref_out, leaves
         release(torch)
+    records["flash_attention_lse"] = {"shape": "phase 3's flash shapes, bfloat16",
+                                      "lse_cost": flash_lse_cost(torch)}
 
     print(f"grouped_matmul backward |kernel - plain| <= atol max(1, rms(plain)) + rtol |plain|, "
           f"(atol, rtol) = {GMM_BWD_TOL}")
@@ -3449,7 +3562,8 @@ def main() -> int:
         train[arch]["launches"] for arch, _, _ in TRAINED]
 
     extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
-             "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled")
+             "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled",
+             "lse_cost")
     kernels = []
     for name, meta in KERNELS.items():
         rec = records[name]

@@ -39,7 +39,12 @@
 //    window's edge is masked inside its first tiles;
 //  * q/k/v/o go through (b, h, s) strides, so the model's (B, S, H, d)
 //    activations are read and written in place; o is staged through shared
-//    memory and stored in 16-byte vectors.
+//    memory and stored in 16-byte vectors;
+//  * under autograd the caller passes `lse`, and the epilogue writes each
+//    row's log-sum-exp from the online-softmax state it holds (one branch
+//    on a null pointer after the key loop: serving passes null), which
+//    the backward (csrc/flash_attention_bwd.cu) reads instead of a pass
+//    of its own.
 // float32 runs a CUDA-core kernel (64 x 64 float32 tiles in shared memory,
 // 4 x 4 outputs a thread): the tensor cores take float32 only as TF32,
 // which misses the float32 tolerance.  wgmma, TMA and
@@ -102,7 +107,7 @@ flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __re
              int64_t q_sb, int64_t q_sh, int64_t q_ss,
              int64_t k_sb, int64_t k_sh, int64_t k_ss,
              int64_t v_sb, int64_t v_sh, int64_t v_ss,
-             int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale) {
+             int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale, float* __restrict__ lse) {
   constexpr int QS = D + kPad;    // q/k tile row stride
   constexpr int PS = kBK + kPad;  // p tile row stride
   constexpr int CD = D / 16;      // output columns per thread
@@ -224,6 +229,7 @@ flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       T* orow = o + b * o_sb + h * o_sh + qi * o_ss;
 #pragma unroll
       for (int c = 0; c < CD; ++c) store(orow + tx + 16 * c, acc[r][c] / l);
+      if (lse && tx == 0) lse[static_cast<int64_t>(bh) * S + qi] = m_i[r] + logf(l);
     }
   }
 }
@@ -232,6 +238,7 @@ flash_kernel_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // read from L2 serves 128 rows), 4 below (where 8 would spill)
 constexpr int kKeys = 64;    // keys per K/V tile
 constexpr int kStages = 3;   // cp.async ring depth
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 __host__ __device__ constexpr int warps16() { return D >= 80 ? 8 : 4; }
@@ -253,7 +260,8 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   int64_t q_sb, int64_t q_sh, int64_t q_ss,
                   int64_t k_sb, int64_t k_sh, int64_t k_ss,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                  int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2) {
+                  int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2,
+                  float* __restrict__ lse) {
   using T = __nv_bfloat16;
   constexpr int RS = D + 8;               // tile row (bf16): 16 bytes of padding
   constexpr int NTH = 32 * warps16<D>();  // threads a block
@@ -423,7 +431,8 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   cp_async_wait<0>();
 
   // o = acc / l into this warp's own rows of qs (only it read them), then
-  // 16-byte stores of the rows inside S
+  // 16-byte stores of the rows inside S; the row log-sum-exp (natural log)
+  // when the backward asked for it
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const float l = fmaxf(l_i[hh], 1e-30f);
@@ -431,6 +440,8 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<unsigned*>(qw + (lane / 4 + 8 * hh) * RS + 8 * j + 2 * (lane % 4)) =
           pack_bf16(acc[j][2 * hh] / l, acc[j][2 * hh + 1] / l);
+    if (lse && lane % 4 == 0 && r0 + 8 * hh < S)
+      lse[static_cast<int64_t>(bh) * S + r0 + 8 * hh] = (m_i[hh] + log2f(l)) * kLn2;
   }
   __syncwarp();
   T* ob = o + b * o_sb + h * o_sh;
@@ -443,8 +454,9 @@ flash_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
-           int Skv, int causal, int window, const long long* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int Hkv, int S, int Skv, int causal, int window, const long long* st,
+           cudaStream_t stream) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   if constexpr (std::is_same_v<T, float>) {
     auto kernel = window > 0 ? flash_kernel_f32<T, D, true> : flash_kernel_f32<T, D, false>;
@@ -454,7 +466,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     kernel<<<grid, kThreads, smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), H, Hkv, S, Skv, causal, window, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, lse);
   } else {
     auto kernel = window > 0 ? flash_kernel_bf16<D, true> : flash_kernel_bf16<D, false>;
     cudaError_t err = allow_smem(kernel, smem16<D>());
@@ -464,20 +476,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     kernel<<<grid, 32 * warps16<D>(), smem16<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), H, Hkv, S, Skv, causal, window, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f, lse);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-             int S, int Skv, int causal, int window, const long long* st, cudaStream_t stream) {
+int dispatch(int d, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int H, int Hkv, int S, int Skv, int causal, int window, const long long* st,
+             cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
-    case 192: return launch<T, 192>(q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, Skv, causal, window, st, stream);
+    case 192: return launch<T, 192>(q, k, v, o, lse, B, H, Hkv, S, Skv, causal, window, st, stream);
     default: return kUnsupported;
   }
 }
@@ -487,7 +500,9 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int B,
 
 // q/o (B, H, S, d), k/v (B, Hkv, Skv, d): element strides of the three outer
 // dims (the last dim is contiguous); window 0 means none and applies only
-// when causal.  Returns 0 or the launch error.
+// when causal.  lse: null, or float32 (B, H, S) that receives each row's
+// log-sum-exp of its scaled, masked scores (natural log), which the
+// backward reads.  Returns 0 or the launch error.
 extern "C" int ham_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int S, int Skv, int d, int causal, int window, int dtype,
@@ -495,7 +510,7 @@ extern "C" int ham_flash_attention(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int device, void* stream) {
+    void* lse, int device, void* stream) {
   if (Hkv < 1 || H % Hkv || window < 0) return ham::kUnsupported;
   if (!causal) window = 0;
   if (B == 0 || H == 0 || S == 0) return 0;
@@ -504,11 +519,12 @@ extern "C" int ham_flash_attention(
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   auto s = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
   switch (dtype) {
     case ham::kF32:
-      return ham::dispatch<float>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, window, st, s);
+      return ham::dispatch<float>(d, q, k, v, o, l, B, H, Hkv, S, Skv, causal, window, st, s);
     case ham::kBF16:
-      return ham::dispatch<__nv_bfloat16>(d, q, k, v, o, B, H, Hkv, S, Skv, causal, window,
+      return ham::dispatch<__nv_bfloat16>(d, q, k, v, o, l, B, H, Hkv, S, Skv, causal, window,
                                           st, s);
     default: return ham::kUnsupported;
   }

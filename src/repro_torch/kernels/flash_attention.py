@@ -39,13 +39,15 @@ tensor cores take float32 only as TF32, which would miss the float32
 tolerance.  ``wgmma``, TMA and warp specialisation are later work.
 
 Under autograd (grad enabled and an input that requires grad) a CUDA call
-goes through :class:`_FlashAttention`, whose backward launches the backward
-kernel (FlashAttention-2's: one block per query tile recomputes the row
-log-sum-exp, D = rowsum(dO o O) and dQ; one block per key tile accumulates
-dK and dV over the query tiles and the q heads of its kv group; no
-atomics, so a step's gradients repeat bit for bit; see the source's note).
-Otherwise a call launches the forward exactly as before, so serving's
-launches and times do not move.
+goes through :class:`_FlashAttention`: its forward asks the kernel for each
+row's log-sum-exp as well (written from the online-softmax state, one
+branch in the epilogue) and saves it, and its backward launches the
+backward kernel (FlashAttention-2's: D = rowsum(dO o O); one block per key
+tile accumulates dK and dV over its query tiles, for bf16 a block per q
+head whose shares are summed over the kv group after; one block per query
+tile forms dQ; for bf16 every product on the tensor cores; no atomics, so
+a step's gradients repeat bit for bit; see the source's note).  Otherwise a call launches the forward with no LSE output,
+so serving's launches and times do not move.
 """
 
 from __future__ import annotations
@@ -55,15 +57,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, attention_scores_ref
 
 HEAD_DIMS = (32, 64, 80, 128, 192)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ham_flash_attention": [_P] * 4 + [_I] * 9 + [_L] * 12 + [_I, _P],
+    "ham_flash_attention": [_P] * 4 + [_I] * 9 + [_L] * 12 + [_P, _I, _P],
 }
 _BWD_SIGNATURES = {
-    "ham_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P, _I, _P],
+    "ham_flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_P, _I, _P],
 }
 
 #: kernel launches made by :func:`flash_attention_heads` (plain calls not counted)
@@ -85,6 +87,18 @@ def flash_attention_heads_plain(q, k, v, *, causal=True, window=None):
     return out.reshape(B, H, S, d)
 
 
+def flash_attention_heads_lse_plain(q, k, v, *, causal=True, window=None):
+    """The row log-sum-exp (natural log) of the scaled, masked scores, float32
+    (B, H, S): what the forward kernel writes for its backward (``v`` is not
+    needed)."""
+    del v
+    B, H, S, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    s = attention_scores_ref(q.reshape(B * H, S, d), k.reshape(B * Hkv, Skv, d), causal=causal,
+                             q_per_kv=H // Hkv, window=window)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
 def flash_attention_heads_backward_plain(q, k, v, o, dout, *, causal=True, window=None):
     """The plain version of :func:`flash_attention_heads_backward`: autograd
     through :func:`flash_attention_heads_plain` (``o`` is not needed)."""
@@ -95,34 +109,41 @@ def flash_attention_heads_backward_plain(q, k, v, o, dout, *, causal=True, windo
         return torch.autograd.grad(out, leaves, dout)
 
 
-def flash_attention_heads_backward(q, k, v, o, dout, *, causal=True, window=None):
+def flash_attention_heads_backward(q, k, v, o, dout, *, causal=True, window=None, lse=None):
     """(dq, dk, dv) of :func:`flash_attention_heads` at (q, k, v), whose
     output was ``o``, for the output gradient ``dout``; each in its input's
     dtype and the model's (B, S, heads, d) layout (returned as (B, heads,
-    S, d) views).  CPU tensors take the plain version; CUDA tensors launch
-    the backward kernel."""
+    S, d) views).  ``lse``: the rows' log-sum-exp as the forward kernel
+    saved it (float32 (B, H, S)); None launches the forward once more to
+    write it (counted in ``launches``).  CPU tensors take the plain version
+    (which needs no ``lse``); CUDA tensors launch the backward kernel."""
     if not causal:
         window = None
     if q.device.type == "cpu":
         return flash_attention_heads_backward_plain(q, k, v, o, dout, causal=causal,
                                                     window=window)
-    return _launch_backward(q, k, v, o, dout, causal, window)
+    if lse is None:
+        lse = empty_lse(q)
+        _launch(q, k, v, causal, window, lse)
+    return _launch_backward(q, k, v, o, dout, causal, window, lse)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient."""
+    """The forward kernel, saving each row's log-sum-exp, with the backward
+    kernel as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _launch(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        lse = empty_lse(q)
+        out = _launch(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = _launch_backward(q, k, v, out, dout, ctx.causal, ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, out, dout, ctx.causal, ctx.window, lse)
         return dq, dk, dv, None, None
 
 
@@ -155,6 +176,11 @@ def flash_attention(q, k, v, *, causal=True, q_per_kv=1):
     return flash_attention_heads(q[None], k[None], v[None], causal=causal)[0]
 
 
+def empty_lse(q):
+    """A float32 (B, H, S) tensor for the forward's row log-sum-exp."""
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def empty_heads_like(t):
     """An empty (B, heads, S, d) tensor like ``t``, a view of one in the
     model's (B, S, heads, d) layout."""
@@ -163,7 +189,9 @@ def empty_heads_like(t):
 
 
 @_build.counted
-def _launch(q, k, v, causal, window):
+def _launch(q, k, v, causal, window, lse=None):
+    """Launch the forward; with ``lse`` (float32 (B, H, S), contiguous) the
+    kernel also writes each row's log-sum-exp there."""
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = empty_heads_like(q)
@@ -173,11 +201,14 @@ def _launch(q, k, v, causal, window):
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if lse is not None:
+        _check_lse(q, lse)
     lib = _build.library("flash_attention", _SIGNATURES)
     err = lib.ham_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Hkv, S, Skv, d, int(causal), window or 0, dtype,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        None if lse is None else lse.data_ptr(),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash_attention")
@@ -186,10 +217,18 @@ def _launch(q, k, v, causal, window):
     return out
 
 
-def _launch_backward(q, k, v, o, dout, causal, window):
+def _check_lse(q, lse):
+    if (lse.dtype != torch.float32 or lse.device != q.device or lse.shape != q.shape[:3]
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention lse must be contiguous float32 {tuple(q.shape[:3])} "
+                         f"on {q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def _launch_backward(q, k, v, o, dout, causal, window, lse):
     """Launch the backward kernel: (dq, dk, dv) in the (B, S, heads, d)
-    layout, returned as (B, heads, S, d) views; float32 scratch for the row
-    log-sum-exp and D."""
+    layout, returned as (B, heads, S, d) views, from the forward's row
+    log-sum-exp ``lse``; float32 scratch for D and, for bf16 with H > Hkv,
+    for the q heads' dK and dV shares."""
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if not _build._aligned(dout) or dout.stride(-1) != 1:
@@ -204,12 +243,15 @@ def _launch_backward(q, k, v, o, dout, causal, window):
                          f"dout {tuple(dout.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention backward takes head_dim in {HEAD_DIMS}, got {d}")
+    _check_lse(q, lse)
     f32 = dict(dtype=torch.float32, device=q.device)
-    lse, delta = torch.empty(B * H * S, **f32), torch.empty(B * H * S, **f32)
+    delta = torch.empty(B * H * S, **f32)
+    shares = dtype == _build.DTYPE_CODES[torch.bfloat16] and H > Hkv
+    part = torch.empty(2 * B * H * Skv * d if shares else 0, **f32)
     strides = (ctypes.c_longlong * 24)(*(s for t in tensors for s in t.stride()[:3]))
     lib = _build.library("flash_attention_bwd", _BWD_SIGNATURES)
     err = lib.ham_flash_attention_bwd(
-        *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(), part.data_ptr(),
         B, H, Hkv, S, Skv, d, int(causal), window or 0, dtype, ctypes.addressof(strides),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )

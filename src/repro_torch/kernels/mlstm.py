@@ -43,14 +43,15 @@ until it divides S.
 
 Under autograd (grad enabled and an input that requires grad) a CUDA call
 with no initial state goes through :class:`_MLSTM`, whose backward launches
-``csrc/mlstm_bwd.cu`` (float32 on the CUDA cores: the states at chunk
-starts recomputed in float32, the stabilisers held constant, the chunks
-walked in reverse carrying d[C | n]; no atomics, so a step's gradients
-repeat bit for bit; see the source's note).  The backward covers the
-gradient of h: a call under grad with an initial state, or whose loss
-reaches the final state, raises (ROADMAP Queue 1 item 12f).  Otherwise a
-call launches the forward exactly as before, so serving's launches and
-times do not move.
+``csrc/mlstm_bwd.cu`` (the states at chunk starts recomputed in float32,
+the stabilisers held constant, the chunks walked in reverse carrying d[C |
+n]; gate passes a warp per chunk; bf16 on the tensor cores with no P or
+dS tile in device memory (:func:`backward_route`), float32 on the CUDA
+cores; no atomics, so a step's gradients repeat bit for bit; see the
+source's note).  The backward covers the gradient of h: a call under grad
+with an initial state, or whose loss reaches the final state, raises
+(ROADMAP Queue 1 item 12f).  Otherwise a call launches the forward exactly
+as before, so serving's launches and times do not move.
 """
 
 from __future__ import annotations
@@ -67,12 +68,13 @@ _SIGNATURES = {
     "ham_mlstm_chunked": [_P] * 17 + [_I] * 9 + [_L] * 18 + [_I, _P],
 }
 _BWD_SIGNATURES = {
-    "ham_mlstm_bwd_workspace": [_I] * 6 + [_P],
-    "ham_mlstm_bwd": [_P] * 12 + [_I] * 7 + [_P, _I, _P],
+    "ham_mlstm_bwd_workspace": [_I] * 8 + [_P, _P],
+    "ham_mlstm_bwd": [_P] * 12 + [_I] * 8 + [_P, _I, _P],
 }
 _TILE = 64  # csrc/mlstm.cu kT: the chunk is padded to a multiple of it
 _TC_DK, _TC_DV = 256, 256  # csrc/mlstm.cu kScoreK, kDvT: the tensor-core route's tiles
 _TC_MAX_DK = 512            # csrc/mlstm.cu kTcMaxDk: a block's q rows sit in shared memory
+_TC_BWD_MAX_L = 1536        # csrc/mlstm_bwd.cu kTcMaxLp: a 64 x L tile of P or dS in shared memory
 
 #: kernel launches made by :func:`mlstm_chunked_heads` (plain calls not counted)
 launches = 0
@@ -190,6 +192,17 @@ def route(q, v) -> str:
     return "cuda_cores"
 
 
+def backward_route(q, v, chunk) -> str:
+    """The backward kernel's route: ``tensor_cores`` for bf16 with dk and dv
+    multiples of 8 and a chunk of at most ``_TC_BWD_MAX_L`` positions
+    (rounded up to the 64-wide tile), ``cuda_cores`` otherwise."""
+    dk, dv, S = q.shape[-1], v.shape[-1], q.shape[-2]
+    Lp = -(-min(chunk, S) // _TILE) * _TILE
+    if q.dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and Lp <= _TC_BWD_MAX_L:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 @_build.counted
 def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
     """Launch the kernel; ``kernel`` overrides the route (for timing each)."""
@@ -241,10 +254,11 @@ def _launch(q, k, v, i_pre, f_pre, state, chunk, out, kernel=None):
     return out, (C, n, m)
 
 
-def _launch_backward(q, k, v, i_pre, f_pre, dh, chunk):
+def _launch_backward(q, k, v, i_pre, f_pre, dh, chunk, kernel=None):
     """Launch the backward kernel: (dq, dk, dv) in the model's (B, S, H, d)
     layout and (di, df) in (B, S, H), returned as (B, H, S, ...) views; one
-    float32 scratch buffer (csrc/mlstm_bwd.cu's layout)."""
+    float32 scratch buffer (csrc/mlstm_bwd.cu's layout).  ``kernel``
+    "cuda_cores" keeps bf16 on the CUDA-core route (for timing it)."""
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     if dh.stride(-1) != 1 or not _build._aligned(dh):
@@ -264,14 +278,18 @@ def _launch_backward(q, k, v, i_pre, f_pre, dh, chunk):
         raise ValueError(f"mlstm chunk must be positive, got {chunk}")
     L = min(chunk, S)
     lib = _build.library("mlstm_bwd", _BWD_SIGNATURES)
-    nbytes = ctypes.c_longlong()
-    _build.check(lib, lib.ham_mlstm_bwd_workspace(B, H, S, dk, dv, L, ctypes.byref(nbytes)),
+    allow_tc = int(kernel != "cuda_cores")
+    nbytes, tc = ctypes.c_longlong(), ctypes.c_int()
+    _build.check(lib, lib.ham_mlstm_bwd_workspace(B, H, S, dk, dv, L, dtype, allow_tc,
+                                                  ctypes.byref(nbytes), ctypes.byref(tc)),
                  "mlstm backward")
+    if bool(tc.value) != (allow_tc and backward_route(q, v, chunk) == "tensor_cores"):
+        raise RuntimeError("mlstm backward: the kernel's route disagrees with backward_route")
     work = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
     tensors = (q, k, v, i_pre, f_pre, dh, dq, dk_, dv_, di, df)
     strides = (ctypes.c_longlong * 33)(*(s for t in tensors for s in t.stride()[:3]))
     err = lib.ham_mlstm_bwd(
-        *(t.data_ptr() for t in tensors), work.data_ptr(), B, H, S, dk, dv, L, dtype,
+        *(t.data_ptr() for t in tensors), work.data_ptr(), B, H, S, dk, dv, L, dtype, allow_tc,
         ctypes.addressof(strides), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

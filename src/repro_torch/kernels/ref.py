@@ -16,21 +16,28 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def attention_ref(q, k, v, *, causal=True, q_per_kv=1, window=None):
-    """Oracle for flash_attention.  q: (BH,S,d), k/v: (BKV,Skv,d); q row
-    ``bh`` reads kv row ``bh // q_per_kv``; causal keeps keys j <= i, and a
-    ``window`` (causal only) keys i - window < j <= i, as the reference
-    model's ``causal_mask``."""
+def attention_scores_ref(q, k, *, causal=True, q_per_kv=1, window=None):
+    """The scaled, masked float32 scores of :func:`attention_ref`: (BH, S,
+    Skv), masked keys at ``NEG_INF``."""
     S, d = q.shape[1], q.shape[2]
     kk = k.repeat_interleave(q_per_kv, dim=0).float()
-    vv = v.repeat_interleave(q_per_kv, dim=0).float()
     s = torch.einsum("htd,hsd->hts", q.float(), kk) / math.sqrt(d)
     if causal:
         mask = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device).tril()
         if window is not None:
             mask = mask.triu(1 - window)
         s = torch.where(mask[None], s, NEG_INF)
+    return s
+
+
+def attention_ref(q, k, v, *, causal=True, q_per_kv=1, window=None):
+    """Oracle for flash_attention.  q: (BH,S,d), k/v: (BKV,Skv,d); q row
+    ``bh`` reads kv row ``bh // q_per_kv``; causal keeps keys j <= i, and a
+    ``window`` (causal only) keys i - window < j <= i, as the reference
+    model's ``causal_mask``."""
+    s = attention_scores_ref(q, k, causal=causal, q_per_kv=q_per_kv, window=window)
     p = torch.softmax(s, dim=-1)
+    vv = v.repeat_interleave(q_per_kv, dim=0).float()
     return torch.einsum("hts,hsd->htd", p, vv).to(q.dtype)
 
 

@@ -6,17 +6,28 @@
   attention, and of the reference model's ``causal_mask(window=)``
   attention for a sliding window; float32, 2e-5 (the forward's tolerance:
   both sum the same products in float32, in other orders).
-* a numpy model of ``csrc/flash_attention_bwd.cu``'s tile walk: each
-  64-query tile's LSE recomputed over its 64-key tiles (online max and sum
-  from the finite -0.7 FLT_MAX mask value), D = rowsum(dO o O) and dQ over
-  the same key tiles; each 64-key tile's dK and dV accumulated over the
-  32-query tiles of every q head in its kv group (from the causal diagonal
-  to the window's far edge); causal, window and ragged-tail masking.  It
-  must equal autograd (float32 model against a float64 autograd, 1e-5
-  absolute on unit-scale inputs), so the kernel's algorithm is checked
-  before the card runs it.
+* ``flash_attention_heads_lse_plain``, the row log-sum-exp the forward
+  kernel saves for its backward, against ``jax.nn.logsumexp`` of the
+  reference's scaled, masked scores (``attention_ref``'s, and
+  ``causal_mask(window=)``'s for a window) for every case (GQA, causal,
+  non-causal, cross, windows, ragged tiles); float32, 1e-5.
+* a numpy model of ``csrc/flash_attention_bwd.cu``'s tile walk, given the
+  LSE: D = rowsum(dO o O); each q head's share of a 64-key tile's dK and dV
+  accumulated by 16-key warps over its query steps (64, 32 or 16 queries by
+  head_dim), from the causal diagonal to the window's far edge, a warp
+  skipping a step wholly outside its keys' masks, and the shares of a kv
+  group's q heads added in head order; dQ by 16-row warps
+  of the forward's query tiles over 64-key tiles from the window's near
+  edge to the diagonal; masks on the crossing tiles only.  It must equal
+  autograd: in float32 (against a float64 autograd, 1e-5 absolute on
+  unit-scale inputs) and with P and dS rounded to bf16 as the kernel's mma
+  operands are (bf16 inputs, against a float32 autograd, within the card's
+  bf16 limit: 0.5 of the plain gradient's RMS), so the kernel's algorithm
+  is checked before the card runs it.
 * the autograd routes (``_FlashAttention``, ``_GroupedMatmul``) with their
-  launches swapped for the plain versions, and the grouped-matmul
+  launches swapped for the plain versions: the forward saves the LSE and
+  the backward receives it, with no second forward; a backward called
+  without an LSE launches the forward once to write it; the grouped-matmul
   backward's transposed, padded operands against the plain autograd
   (float32 2e-5, a ragged capacity included).
 * the decode wrappers raise under grad for a non-CPU request (``meta``
@@ -101,13 +112,37 @@ def test_plain_backward_matches_jax_grad(case):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=ATOL, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_lse_matches_jax_logsumexp(case):
+    B, H, Hkv, S, Skv, d, causal, window = case
+    q, k, v, _ = _qkvo(4, B, H, Hkv, S, Skv, d)
+    kk = jnp.repeat(jnp.asarray(k), H // Hkv, axis=1)
+    s = jnp.einsum("bhtd,bhsd->bhts", jnp.asarray(q), kk) / np.sqrt(d)
+    if causal:
+        s = jnp.where(JL.causal_mask(S, Skv, window=window)[0], s, NEG)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    got = fa.flash_attention_heads_lse_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                             torch.from_numpy(v), causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
 # -- the kernel's tile walk, in numpy ----------------------------------------------
 
-KEYS, PQ, MQ = 64, 64, 32   # csrc/flash_attention_bwd.cu kKeys, kQ, kMQ
+KEYS = 64           # csrc/flash_attention_bwd.cu: keys of a dK/dV block (16 a warp) ...
+DQ_KEYS = 64        # ... and of a dQ kernel's K/V tile
 
 
-def _masked(key, row, Skv, causal, window):
-    m = key >= Skv
+def _q_step(d):     # csrc/flash_attention_bwd.cu q_step<D>
+    return 64 if d <= 64 else 32 if d <= 128 else 16
+
+
+def _dq_rows(d):    # 16 rows a warp, dq_warps<D> warps
+    return 16 * (8 if d >= 80 else 4)
+
+
+def _masked(key, row, S, Skv, causal, window):
+    m = (key >= Skv) | (row >= S)
     if causal:
         m = m | (key > row)
     if window:
@@ -115,82 +150,101 @@ def _masked(key, row, Skv, causal, window):
     return m
 
 
-def _kernel_model(q, k, v, o, do, causal, window):
-    """csrc/flash_attention_bwd.cu, tile by tile, in float32."""
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _kernel_model(q, k, v, o, do, lse, causal, window, rounded=False):
+    """csrc/flash_attention_bwd.cu, tile by tile, in float32, given the
+    forward's lse; ``rounded``: P and dS rounded to bf16 as mma operands."""
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     qpk, scale = H // Hkv, np.float32(1.0 / math.sqrt(d))
     window = window if causal else 0
-    lse = np.zeros((B, H, S), np.float32)
-    delta = np.zeros((B, H, S), np.float32)
+    op = _bf16 if rounded else (lambda a: a)
+    delta = (o.astype(np.float32) * do).sum(-1)
     dq = np.zeros(q.shape, np.float32)
     dk = np.zeros(k.shape, np.float32)
     dv = np.zeros(v.shape, np.float32)
-    pad = lambda a, rows: np.concatenate([a, np.zeros((rows - len(a), d), np.float32)])
-    # dq kernel: one block per (b, h, 64-query tile); pass 1 the LSE, pass 2 dQ
-    for b in range(B):
-        for h in range(H):
-            hk = h // qpk
-            for q0 in range(0, S, PQ):
-                rows = np.arange(q0, q0 + PQ)
-                qs, dos = pad(q[b, h, q0:q0 + PQ], PQ), pad(do[b, h, q0:q0 + PQ], PQ)
-                m = np.full(PQ, NEG, np.float32)
-                l = np.zeros(PQ, np.float32)
-                q_last = min(q0 + PQ, S) - 1
-                k_end = min(Skv, q_last + 1) if causal else Skv
-                k_begin = max(0, q0 - window + 1) // KEYS * KEYS if window else 0
-                for k0 in range(k_begin, k_end, KEYS):
-                    keys = np.arange(k0, k0 + KEYS)
-                    s = (qs @ pad(k[b, hk, k0:k0 + KEYS], KEYS).T) * scale
-                    s = np.where(_masked(keys[None], rows[:, None], Skv, causal, window), NEG, s)
-                    m_new = np.maximum(m, s.max(1))
-                    with np.errstate(over="ignore"):
-                        l = np.exp(m - m_new) * l + np.exp(s - m_new[:, None]).sum(1)
-                    m = m_new
-                lse_t = m + np.log(np.maximum(l, 1e-30))
-                del_t = (pad(o[b, h, q0:q0 + PQ], PQ) * dos).sum(1)
-                valid = rows < S
-                lse[b, h, rows[valid]] = lse_t[valid]
-                delta[b, h, rows[valid]] = del_t[valid]
-                acc = np.zeros((PQ, d), np.float32)
-                for k0 in range(k_begin, k_end, KEYS):
-                    keys = np.arange(k0, k0 + KEYS)
-                    ks, vs = pad(k[b, hk, k0:k0 + KEYS], KEYS), pad(v[b, hk, k0:k0 + KEYS], KEYS)
-                    s, dp = (qs @ ks.T) * scale, dos @ vs.T
-                    off = ~valid[:, None] | _masked(keys[None], rows[:, None], Skv, causal,
-                                                    window)
-                    with np.errstate(over="ignore"):   # masked rows past S: discarded
-                        p = np.where(off, 0, np.exp(s - lse_t[:, None]))
-                    acc += (p * (dp - del_t[:, None])) @ ks
-                dq[b, h, rows[valid]] = (acc * scale)[valid]
-    # dk/dv kernel: one block per (b, hk, 64-key tile)
+    QB, RQ = _q_step(d), _dq_rows(d)
+
+    def rows_of(a, r0, n, limit):   # rows [r0, r0 + n) of a, zero past limit
+        out = np.zeros((n, d), np.float32)
+        m = max(0, min(n, limit - r0))
+        out[:m] = a[r0:r0 + m]
+        return out
+
+    def pick(a, r0, n, limit):      # entries [r0, r0 + n) of a 1-d array, zero past limit
+        out = np.zeros(n, np.float32)
+        m = max(0, min(n, limit - r0))
+        out[:m] = a[r0:r0 + m]
+        return out
+
+    # dK/dV: a block per (b, q head, 64 keys), a warp per 16 keys; the
+    # shares of a kv group's q heads added in head order
     for b in range(B):
         for hk in range(Hkv):
             for k0 in range(0, Skv, KEYS):
-                ks, vs = pad(k[b, hk, k0:k0 + KEYS], KEYS), pad(v[b, hk, k0:k0 + KEYS], KEYS)
-                keys = np.arange(k0, k0 + KEYS)
-                q_begin = k0 // MQ * MQ if causal else 0
+                q_begin = min(k0, S) // QB * QB if causal else 0
                 q_end = min(S, k0 + KEYS - 1 + window) if window else S
-                dka = np.zeros((KEYS, d), np.float32)
-                dva = np.zeros((KEYS, d), np.float32)
-                for g in range(qpk):
-                    h = hk * qpk + g
-                    for q0 in range(q_begin, q_end, MQ):
-                        rows = np.arange(q0, q0 + MQ)
-                        qs, dos = pad(q[b, h, q0:q0 + MQ], MQ), pad(do[b, h, q0:q0 + MQ], MQ)
-                        ok = rows < S
-                        lse_t = np.where(ok, lse[b, h, np.minimum(rows, S - 1)], 0)
-                        del_t = np.where(ok, delta[b, h, np.minimum(rows, S - 1)], 0)
-                        s, dp = qs @ ks.T, dos @ vs.T
-                        off = ~ok[:, None] | _masked(keys[None], rows[:, None], Skv, causal,
-                                                     window)
-                        p = np.where(off, 0, np.exp(s * scale - lse_t[:, None]))
-                        ds = p * (dp - del_t[:, None])
-                        dva += p.T @ dos
-                        dka += ds.T @ qs
-                n = min(KEYS, Skv - k0)
-                dk[b, hk, k0:k0 + n] = (dka * scale)[:n]
-                dv[b, hk, k0:k0 + n] = dva[:n]
+                for w0 in range(k0, k0 + KEYS, 16):
+                    ks, vs = rows_of(k[b, hk], w0, 16, Skv), rows_of(v[b, hk], w0, 16, Skv)
+                    keys = np.arange(w0, w0 + 16)
+                    dka = np.zeros((16, d), np.float32)
+                    dva = np.zeros((16, d), np.float32)
+                    for g in range(qpk):
+                        h = hk * qpk + g
+                        dks = np.zeros((16, d), np.float32)
+                        dvs = np.zeros((16, d), np.float32)
+                        for q0 in range(q_begin, q_end, QB):
+                            if causal and q0 + QB - 1 < w0:
+                                continue
+                            if window and q0 >= w0 + 15 + window:
+                                continue
+                            qs, dos = rows_of(q[b, h], q0, QB, S), rows_of(do[b, h], q0, QB, S)
+                            ls, ds_ = pick(lse[b, h], q0, QB, S), pick(delta[b, h], q0, QB, S)
+                            cols = np.arange(q0, q0 + QB)
+                            st, dpt = ks @ qs.T, vs @ dos.T           # keys x queries
+                            with np.errstate(over="ignore"):   # masked entries: discarded
+                                p = np.exp(st * scale - ls[None])
+                            p = np.where(_masked(keys[:, None], cols[None], S, Skv, causal,
+                                                 window), 0, p).astype(np.float32)
+                            dst = p * (dpt - ds_[None])
+                            dvs += op(p) @ dos
+                            dks += op(dst) @ qs
+                        dka += dks
+                        dva += dvs
+                    n = max(0, min(16, Skv - w0))
+                    dk[b, hk, w0:w0 + n] = (dka * scale)[:n]
+                    dv[b, hk, w0:w0 + n] = dva[:n]
+    # dQ: a block per (b, h, RQ rows), a warp per 16 rows
+    for b in range(B):
+        for h in range(H):
+            hk = h // qpk
+            for q0 in range(0, S, RQ):
+                q_last = min(q0 + RQ, S) - 1
+                k_end = min(Skv, q_last + 1) if causal else Skv
+                k_begin = max(0, q0 - window + 1) // DQ_KEYS * DQ_KEYS if window else 0
+                for wq in range(q0, q0 + RQ, 16):
+                    qs, dos = rows_of(q[b, h], wq, 16, S), rows_of(do[b, h], wq, 16, S)
+                    ls, ds_ = pick(lse[b, h], wq, 16, S), pick(delta[b, h], wq, 16, S)
+                    rows = np.arange(wq, wq + 16)
+                    acc = np.zeros((16, d), np.float32)
+                    for k0 in range(k_begin, k_end, DQ_KEYS):
+                        if causal and k0 > wq + 15:
+                            continue
+                        if window and k0 + DQ_KEYS - 1 <= wq - window:
+                            continue
+                        ks = rows_of(k[b, hk], k0, DQ_KEYS, Skv)
+                        vs = rows_of(v[b, hk], k0, DQ_KEYS, Skv)
+                        keys = np.arange(k0, k0 + DQ_KEYS)
+                        with np.errstate(over="ignore"):
+                            p = np.exp((qs @ ks.T) * scale - ls[:, None])
+                        p = np.where(_masked(keys[None], rows[:, None], S, Skv, causal, window),
+                                     0, p).astype(np.float32)
+                        acc += op(p * (dos @ vs.T - ds_[:, None])) @ ks
+                    n = max(0, min(16, S - wq))
+                    dq[b, h, wq:wq + n] = (acc * scale)[:n]
     return dq, dk, dv
 
 
@@ -200,29 +254,58 @@ def test_kernel_tile_walk_equals_autograd(case):
     q, k, v, do = _qkvo(2, B, H, Hkv, S, Skv, d)
     t = lambda a: torch.from_numpy(a).double()
     o = fa.flash_attention_heads_plain(t(q), t(k), t(v), causal=causal, window=window)
+    lse = fa.flash_attention_heads_lse_plain(t(q), t(k), t(v), causal=causal, window=window)
     want = fa.flash_attention_heads_backward_plain(t(q), t(k), t(v), o, t(do),
                                                    causal=causal, window=window)
-    got = _kernel_model(q, k, v, o.float().numpy(), do, causal, window)
+    got = _kernel_model(q, k, v, o.float().numpy(), do, lse.numpy(), causal, window)
     for g, w, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(g, w.numpy(), atol=1e-5, rtol=1e-5, err_msg=f"d{name}")
+
+
+BF16_GRAD_TOL = 0.5   # chip_smoke.py GRAD_TOL["bfloat16"]: max |kernel - plain| / rms(plain)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernel_tile_walk_bf16_operands_within_the_bf16_limit(case):
+    """P and dS rounded to bf16 before each product, as the kernel's bf16
+    route feeds them to mma.sync, on bf16 inputs: within the card's bf16
+    limit of the float32 autograd."""
+    B, H, Hkv, S, Skv, d, causal, window = case
+    q, k, v, do = (_bf16(a) for a in _qkvo(5, B, H, Hkv, S, Skv, d))
+    t = torch.from_numpy
+    o = _bf16(fa.flash_attention_heads_plain(t(q), t(k), t(v), causal=causal,
+                                             window=window).numpy())
+    lse = fa.flash_attention_heads_lse_plain(t(q), t(k), t(v), causal=causal, window=window)
+    want = fa.flash_attention_heads_backward_plain(t(q), t(k), t(v), None, t(do),
+                                                   causal=causal, window=window)
+    got = _kernel_model(q, k, v, o, do, lse.numpy(), causal, window, rounded=True)
+    for g, w, name in zip(got, want, "qkv"):
+        w = w.numpy()
+        err = np.abs(g - w).max() / np.sqrt(np.mean(w ** 2))
+        assert err <= BF16_GRAD_TOL, f"d{name}: max err / rms {err:.3g}"
 
 
 # -- the autograd routes, launches swapped for the plain versions ---------------------
 
 
 def test_flash_autograd_function_plumbing(monkeypatch):
-    """``_FlashAttention`` saves what its backward reads and returns
-    gradients in the inputs' shapes: with the launches swapped for the
-    plain versions it equals autograd through the plain attention."""
-    calls = []
+    """``_FlashAttention`` saves what its backward reads, the forward's LSE
+    among it, and returns gradients in the inputs' shapes: with the launches
+    swapped for the plain versions it equals autograd through the plain
+    attention, and the backward launches no second forward."""
+    calls, saved = [], []
 
-    def fwd(q, k, v, causal, window):
+    def fwd(q, k, v, causal, window, lse=None):
         calls.append("fwd")
+        assert lse is not None and lse.shape == q.shape[:3] and lse.dtype == torch.float32
+        lse.copy_(fa.flash_attention_heads_lse_plain(q, k, v, causal=causal, window=window))
+        saved.append(lse)
         out = fa.empty_heads_like(q)   # the kernel's output, as _launch allocates it
         return out.copy_(fa.flash_attention_heads_plain(q, k, v, causal=causal, window=window))
 
-    def bwd(q, k, v, o, dout, causal, window):
+    def bwd(q, k, v, o, dout, causal, window, lse):
         calls.append("bwd")
+        assert lse is saved[0]
         return fa.flash_attention_heads_backward_plain(q, k, v, o, dout, causal=causal,
                                                        window=window)
 
@@ -239,6 +322,34 @@ def test_flash_autograd_function_plumbing(monkeypatch):
     want = fa.flash_attention_heads_backward_plain(q, k, v, None, do, causal=True, window=5)
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.transpose(1, 2).numpy(), w.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["lse_none", "lse_given"])
+def test_backward_launches_the_forward_only_without_an_lse(given, monkeypatch):
+    """A non-CPU backward call without ``lse`` launches the forward once
+    (counted in ``launches``) to write it and hands that tensor to the
+    backward launch; with ``lse`` it launches the backward alone."""
+    calls = []
+
+    def fwd(q, k, v, causal, window, lse=None):
+        calls.append(("fwd", lse))
+        return q
+
+    def bwd(q, k, v, o, dout, causal, window, lse):
+        calls.append(("bwd", lse))
+        return q, k, v
+
+    monkeypatch.setattr(fa, "_launch", fwd)
+    monkeypatch.setattr(fa, "_launch_backward", bwd)
+    q, kv = _meta(2, 8, 16, 32, grad=False), _meta(2, 2, 16, 32, grad=False)
+    lse = fa.empty_lse(q) if given else None
+    fa.flash_attention_heads_backward(q, kv, kv, q, q, causal=True, lse=lse)
+    if given:
+        assert calls == [("bwd", lse)]
+    else:
+        (f, written), (b, read) = calls
+        assert (f, b) == ("fwd", "bwd") and written is read
+        assert written.shape == (2, 8, 16) and written.dtype == torch.float32
 
 
 @pytest.mark.parametrize("C", [8, 37, 160])

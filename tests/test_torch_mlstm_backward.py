@@ -19,6 +19,24 @@
   It must equal autograd of the plain version (float32 model, float32
   autograd: max |model - autograd| <= 1e-4 x max |autograd|), in both
   branches of max(|den|, e^{-m}).
+  That model is the CUDA-core route's (float32, and bf16 at widths the
+  tensor cores do not take); its gate passes run a warp per chunk now, which
+  reorders sums the model takes in order.
+* a model of the tensor-core route's pass structure (bf16): chunk-parallel
+  gates (in-chunk cumsum and cummax, m carried in order over the chunks'
+  last F and cummax); [C | n] at chunk starts from k^T (u [v | 1]); per
+  64-row tile, P recomputed, [num | den] = [P | sigma q'] [[v | 1] ; [C |
+  n]] reduced to dh . num and den, the branch, D = G [v | 1]^T with the
+  column sums of D o P, dS, and dq = [dS | sigma G] [k ; [C | n]^T]; d[C |
+  n] walked in reverse from (sigma q')^T G with <d[C | n]_prev, [C | n]_prev>
+  for dm (the state enters a chunk only as e^{m_prev} [C | n]_prev); per
+  64-column tile, P^T and dS^T recomputed, dv = [P^T | u k] [G ; dC] and dk
+  = [dS^T | u [v | 1]] [q' ; dCn^T] with k . (its state term) for da; the
+  gates' backward.  No P or dS leaves its tile.  Unrounded it equals
+  autograd as the first model does; with every mma operand rounded to
+  bf16 (the states too, kept float32 between products) on bf16 inputs it
+  is within the card's bf16 limit, SCAN_GRAD_TOL (0.5 of the plain
+  gradient's RMS); ragged tails included.
 * the autograd route: ``_MLSTM`` with its two launches swapped for plain
   versions runs the forward, then the backward, and gives the plain
   gradients; an initial state, or a loss that reaches the final state,
@@ -255,6 +273,171 @@ def test_kernel_model_matches_autograd(case):
                 _close(g, w, name)
     if ib < 0:
         assert em_rows > 0, "no position took the e^{-m} branch"
+
+
+# -- the tensor-core route's passes ----------------------------------------------
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def tc_model(q, k, v, i, f, dh, chunk, rounded):
+    """csrc/mlstm_bwd.cu's tensor-core route for one (sequence, head), pass
+    by pass, float32; ``rounded``: every product's operands rounded to bf16
+    (q' = q / sqrt(dk) rounded first, as the plain version rounds it)."""
+    f32 = np.float32
+    S, dk = q.shape
+    dv = v.shape[1]
+    L = min(chunk, S)
+    nc, Lp = -(-S // L), -(-L // T) * T
+    op = _bf16 if rounded else (lambda a: a.astype(f32))
+    nv = [min(L, S - c * L) for c in range(nc)]
+    sq = f32(math.sqrt(dk))
+    qs = _bf16(q / sq) if rounded else q / sq
+
+    def rows(a, c):   # positions of chunk c, padded to Lp with zeros
+        out = np.zeros((Lp, *a.shape[1:]), f32)
+        out[:nv[c]] = a[c * L:c * L + nv[c]]
+        return out
+
+    def ext(c):       # [v | 1] of chunk c, dv + 1 wide
+        e = np.zeros((Lp, dv + 1), f32)
+        e[:nv[c], :dv] = v[c * L:c * L + nv[c]]
+        e[:nv[c], dv] = 1
+        return e
+
+    Q, K, DH = ([rows(a, c) for c in range(nc)] for a in (qs, k, dh))
+    # 1a a warp per chunk: in-chunk cumsum and cummax; 1b m carried in order
+    F, a, cm = (np.zeros((nc, Lp), f32) for _ in range(3))
+    last = []
+    for c in range(nc):
+        n = nv[c]
+        F[c, :n] = np.cumsum(_logsig(f[c * L:c * L + n]), dtype=f32)
+        a[c, :n] = i[c * L:c * L + n] - F[c, :n]
+        cm[c, :n] = np.maximum.accumulate(a[c, :n])
+        last.append((F[c, n - 1], cm[c, n - 1]))
+    g, sig, u = (np.zeros((nc, Lp), f32) for _ in range(3))
+    tau = np.zeros(nc, f32)
+    for c in range(nc):
+        mp = f32(-np.inf)
+        for Fl, ml in last[:c]:
+            mp = Fl + max(mp, ml)
+        gL = max(mp, last[c][1])
+        n = nv[c]
+        g[c, :n] = np.maximum(mp, cm[c, :n])
+        sig[c, :n] = np.exp(mp - g[c, :n])
+        u[c, :n] = np.exp(a[c, :n] - gL)
+        tau[c] = np.exp(mp - gL)
+    valid = [np.arange(Lp) < nv[c] for c in range(nc)]
+    tri = np.tril(np.ones((Lp, Lp), bool))
+    Wt = []
+    for c in range(nc):
+        ok = tri & valid[c][:, None]
+        Wt.append(np.exp(np.where(ok, a[c][None, :] - g[c][:, None], -np.inf)).astype(f32))
+    # 2 [C | n] at every chunk start, float32 between products
+    Cp = np.zeros((nc, dk, dv + 1), f32)
+    for c in range(nc - 1):
+        Cp[c + 1] = tau[c] * Cp[c] + op(K[c]).T @ op(u[c][:, None] * ext(c))
+    # 3 the row pass: P, [num | den], the branch, D, dS, dq
+    invM, dden, dFb = (np.zeros((nc, Lp), f32) for _ in range(3))
+    G, dS, colsum = [], [], np.zeros((nc, Lp), f32)
+    dq = np.zeros((S, dk), f32)
+    for c in range(nc):
+        P = op((Q[c] @ K[c].T) * Wt[c])   # rows t, columns s: a bf16 tile in shared memory
+        num = op(P) @ op(ext(c)) + op(sig[c][:, None] * Q[c]) @ op(Cp[c])
+        rho = (DH[c] * num[:, :dv]).sum(1)
+        den = num[:, dv]
+        em = np.exp(-(F[c] + g[c]))
+        by_den = np.abs(den) >= em
+        inv = np.where(valid[c], 1 / np.where(by_den, np.abs(den), em), 0).astype(f32)
+        invM[c] = inv
+        dden[c] = np.where(by_den & valid[c], -np.sign(den) * rho * inv * inv, 0)
+        dFb[c] = np.where(by_den | ~valid[c], 0, rho * inv)
+        Gc = np.concatenate([inv[:, None] * DH[c], dden[c][:, None]], 1).astype(f32)
+        D = op(Gc) @ op(ext(c)).T
+        colsum[c] = (D * P).sum(0)
+        dS.append(op(D * Wt[c]))
+        G.append(Gc)
+        n, s = nv[c], slice(c * L, c * L + nv[c])
+        dq[s] = ((dS[c] @ op(K[c]) + op(sig[c][:, None] * Gc) @ op(Cp[c]).T) / sq)[:n]
+    # 4 d[C | n] at every chunk end, in reverse; <d[C | n]_prev, [C | n]_prev>
+    dCn = np.zeros((nc, dk, dv + 1), f32)
+    dot = np.zeros(nc, f32)
+    acc = np.zeros((dk, dv + 1), f32)
+    for c in reversed(range(nc)):
+        dCn[c] = acc
+        if c == 0:
+            break
+        acc = tau[c] * acc + op(sig[c][:, None] * Q[c]).T @ op(G[c])
+        dot[c] = (acc * Cp[c]).sum()
+    # 5 the column pass: P^T, dS^T (the same tiles, transposed), dv, dk
+    dk_, dv_ = np.zeros((S, dk), f32), np.zeros((S, dv), f32)
+    da = np.zeros((nc, Lp), f32)
+    for c in range(nc):
+        n, s = nv[c], slice(c * L, c * L + nv[c])
+        PT = op((K[c] @ Q[c].T) * Wt[c].T)
+        dv_[s] = (PT @ op(G[c][:, :dv]) + op(u[c][:, None] * K[c]) @ op(dCn[c][:, :dv]))[:n]
+        inter = op(u[c][:, None] * ext(c)) @ op(dCn[c]).T
+        dk_[s] = (dS[c].T @ Q[c] + inter)[:n]
+        da[c] = colsum[c] + (K[c] * inter).sum(1)
+    # 6 the gates' backward, a warp per chunk
+    di, df = np.zeros(S, f32), np.zeros(S, f32)
+    for c in range(nc):
+        n = nv[c]
+        dmn = dot[c + 1] if c + 1 < nc else f32(0)
+        dF = dFb[c, :n] - da[c, :n]
+        if n == L:
+            dF[L - 1] += dmn
+        dls = np.cumsum(dF[::-1])[::-1]
+        df[c * L:c * L + n] = dls / (1 + np.exp(f[c * L:c * L + n]))
+        di[c * L:c * L + n] = da[c, :n]
+    return dq, dk_, dv_, di, df
+
+
+SCAN_GRAD_TOL_BF16 = 0.5   # chip_smoke.py SCAN_GRAD_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("rounded", [False, True], ids=["float32", "bf16_operands"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tensor_core_route_model_matches_autograd(case, rounded):
+    B, H, S, dk, dv, chunk, ib, fb = case
+    q, k, v, i, f, dh = _inputs(6, B, H, S, dk, dv, ib, fb)
+    if rounded:
+        # the kernel's bf16 inputs, q and k |N(0, 1)| as the card's checks
+        # draw them: with signed q . k a denominator can pass through 0, and
+        # there one bf16 rounding of any operand moves 1/M by any amount
+        q, k = np.abs(q), np.abs(k)
+        q, k, v, i, f, dh = (_bf16(x) for x in (q, k, v, i, f, dh))
+    want = _torch_grads(q, k, v, i, f, dh, chunk)
+    for b in range(B):
+        for h in range(H):
+            got = tc_model(q[b, :, h], k[b, :, h], v[b, :, h], i[b, :, h], f[b, :, h],
+                           dh[b, :, h], chunk, rounded)
+            for gg, w, name in zip(got, (x[b, :, h] for x in want), ("dq", "dk", "dv", "di", "df")):
+                if not rounded:
+                    _close(gg, w, name)
+                    continue
+                err = np.abs(gg - w).max() / np.sqrt(np.mean(w ** 2))
+                assert err <= SCAN_GRAD_TOL_BF16, f"{name}: max err / rms {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype, dk, dv, S, chunk, want", [
+    (torch.bfloat16, 512, 1024, 2048, 256, "tensor_cores"),   # xlstm-1.3b's training step
+    (torch.bfloat16, 512, 1024, 509, 256, "tensor_cores"),    # a ragged tail
+    (torch.bfloat16, 16, 24, 100, 64, "tensor_cores"),
+    (torch.float32, 512, 1024, 2048, 256, "cuda_cores"),      # float32 keeps its exact products
+    (torch.bfloat16, 70, 64, 130, 64, "cuda_cores"),          # dk no multiple of 8
+    (torch.bfloat16, 64, 65, 130, 64, "cuda_cores"),          # dv no multiple of 8
+    (torch.bfloat16, 64, 64, 4096, 2048, "cuda_cores"),       # a 64 x L tile past shared memory
+])
+def test_backward_route(dtype, dk, dv, S, chunk, want):
+    """``backward_route`` names the route csrc/mlstm_bwd.cu takes
+    (``tc_route``: bf16, dk and dv multiples of 8, L <= 1536); the launch
+    holds the kernel's own answer to it."""
+    q = torch.empty(1, 1, S, dk, dtype=dtype, device="meta")
+    v = torch.empty(1, 1, S, dv, dtype=dtype, device="meta")
+    assert mlstm.backward_route(q, v, chunk) == want
 
 
 # -- the autograd route ------------------------------------------------------------
