@@ -89,15 +89,18 @@ Phases, in order; any failure raises and exits non-zero:
    a ragged length and d 192, float32 on the CUDA cores and bfloat16 on
    the tensor cores; repeated calls bit for bit), times the forward with
    and without its LSE output at phase 3's shapes, holds the
-   grouped-matmul backward (olmoe's prefill, a ragged capacity) against
-   its plain version, and the mLSTM and SSD backward kernels against
-   autograd through their plain chunked forms (xlstm-1.3b's and
+   grouped-matmul backward (olmoe's prefill, a ragged capacity and both
+   training shapes) against its plain version, bf16 reading x, w and dy in
+   place (the call allocates dx and dw and nothing more) and timed in
+   turns with the transposed-copies path it replaced (that path's copies
+   and products timed one by one), and the mLSTM and SSD backward kernels
+   against autograd through their plain chunked forms (xlstm-1.3b's and
    zamba2-2.7b's training shapes and S 509, float32 and bfloat16, each
    limit below what a backward skipping one chunk reads; repeated calls
    bit for bit), times them beside bound, plain and the PyTorch yardstick
-   where one exists (the mLSTM's bf16 call beside its CUDA-core route, and
-   each backward's device time by kernel), and checks that the decode ops
-   raise under grad; 8b
+   where one exists (each bf16 call in turns with its CUDA-core route, the
+   SSD's scratch bytes on both routes, and each backward's device time by
+   kernel), and checks that the decode ops raise under grad; 8b
    holds one step's float32 gradients card against CPU (B 1 x S 128) of
    internlm2-20b and olmoe-1b-7b (2 layers), xlstm-1.3b (8 layers: one
    group of 7 mLSTM + 1 sLSTM) and zamba2-2.7b (6 Mamba2 blocks, one
@@ -283,6 +286,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:27",
     },
+    # the gradient of the grouped matmul: the Pallas kernel has none (the
+    # reference differentiates its plain grouped matmul through XLA)
+    "grouped_matmul_backward": {
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:27",
+        "variant": "backward (dx = dy w^T, dw = x^T dy) of the grouped matmul, for training on "
+                   "the card; bf16: the wgmma kernel reading x, w and dy in place through TMA "
+                   "(no transposed copies), float32: the forward's tiled kernel on transposed "
+                   "copies",
+    },
     "mlstm": {
         "source": "src/repro_torch/kernels/csrc/mlstm.cu",
         "replaces": "src/repro/kernels/mlstm.py:34",
@@ -304,7 +317,9 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd.py:29",
         "variant": "backward (dx, ddt, dA, dB, dC, dD) of the SSD kernel, for training on the "
-                   "card",
+                   "card; bf16 on the tensor cores (mma.sync, csrc/tile_bf16.cuh: M and dCB "
+                   "recomputed per tile in shared memory, dB and dC summed over head blocks), "
+                   "float32 on the CUDA cores (csrc/tile_f32.cuh); gate passes a warp per chunk",
     },
 }
 
@@ -327,7 +342,9 @@ def _counter_modules():
             "flash_attention": (fla, "launches"),
             "flash_attention_window": (fla, "launches_window"),
             "flash_attention_backward": (fla, "launches_backward"),
-            "grouped_matmul": (gmm, "launches"), "mlstm": (mlstm, "launches"),
+            "grouped_matmul": (gmm, "launches"),
+            "grouped_matmul_backward": (gmm, "launches_backward"),
+            "mlstm": (mlstm, "launches"),
             "mlstm_backward": (mlstm, "launches_backward"),
             "mamba2_ssd": (ssd, "launches"),
             "mamba2_ssd_backward": (ssd, "launches_backward")}
@@ -608,6 +625,14 @@ MLSTM_BWD_TC = ("gates_scan", "gates_exp", "prep_pos_tc", "walk_fwd_tc", "rows_n
 MLSTM_BWD_CC = ("gates_scan", "gates_exp", "walk_fwd<", "p_tiles", "num<", "rows<", "g_fill",
                 "ds_tiles", "walk_bwd<", "dq_tiles", "dk_tiles", "dv_tiles", "gates_bwd")
 
+
+# the SSD backward's kernels by route (csrc/mamba2_ssd_bwd.cu)
+SSD_BWD_TC = ("gates<", "walk_fwd_tc", "walk_bwd_tc", "rows_tc", "cols_tc", "gates_bwd",
+              "reduce<")
+SSD_BWD_CC = ("gates<", "walk_fwd<", "walk_bwd<", "cb_tiles", "dm_tiles", "dc_tiles", "db_tiles",
+              "dx_tiles", "gates_bwd", "reduce<")
+# the grouped-matmul backward's two wgmma products (bf16, in place)
+GMM_BWD_PASSES = ("DxLayout", "DwLayout")
 
 # the flash backward's kernels (csrc/flash_attention_bwd.cu), bf16 route
 FLASH_BWD_PASSES = ("bwd_delta", "bwd_dkdv16", "bwd_group_sum", "bwd_dq16")
@@ -2699,7 +2724,8 @@ def check_scan_grads(torch) -> dict:
             wrong = grad_errs(torch, skipped_chunk_grads(
                 ssd.ssd_chunked_backward_plain, dy, 1, chunk, *xs, chunk=chunk), want)
             again = ssd.ssd_chunked_backward(*xs, dy, chunk=chunk)
-            shape = f"B={B} S={S} H={H} G={G} N=P=64 chunk={chunk} views={views}"
+            route = ssd.backward_route(xs[0], xs[3], chunk)
+            shape = f"B={B} S={S} H={H} G={G} N=P=64 chunk={chunk} views={views} route {route}"
             err = judge("ssd", what, shape, dt, got, want, wrong, again)
             del again, want
             if what != "train":
@@ -2720,6 +2746,35 @@ def check_scan_grads(torch) -> dict:
             )
             rec["bound_ms"], rec["bound_by"] = bound(
                 nbytes, B * (H * per_head + G * per_group), dt)
+            route = ssd.backward_route(x, Bm, chunk)
+            rec["route"] = route
+            if route == "tensor_cores":
+                # the CUDA-core route on the same inputs, in turns, by pass;
+                # both routes' scratch
+                cc = lambda: ssd._launch_backward(*xs, dy, chunk, kernel="cuda_cores")
+                tcr = lambda: ssd.ssd_chunked_backward(*xs, dy, chunk=chunk)
+                turns = [time_ms(torch, fn, 5) for fn in (cc, tcr, tcr, cc)]
+                rec["previous"] = {"route": "cuda_cores", "ms": (turns[0] + turns[3]) / 2,
+                                   "turns_ms": turns}
+                rec["passes_ms"] = {
+                    "tensor_cores": passes_ms(torch, tcr, SSD_BWD_TC, (turns[1] + turns[2]) / 2),
+                    "cuda_cores": passes_ms(torch, cc, SSD_BWD_CC, rec["previous"]["ms"])}
+                rec["workspace_bytes"] = {
+                    r: ssd.backward_workspace(x, Bm, chunk, r)
+                    for r in ("tensor_cores", "cuda_cores")}
+                tcp = rec["passes_ms"]["tensor_cores"]
+                gates_ms = (tcp["gates<"] + tcp["gates_bwd"]
+                            if all(isinstance(tcp[k], float) for k in ("gates<", "gates_bwd"))
+                            else "not measured")
+                rec["gate_passes_ms"] = gates_ms
+                print(f"mamba2_ssd_backward {what} {dt}: tensor cores "
+                      f"{(turns[1] + turns[2]) / 2:.4f} ms, CUDA cores {rec['previous']['ms']:.4f} "
+                      f"ms (turns {[f'{t:.4f}' for t in turns]}); device ms a call by pass "
+                      f"{rec['passes_ms']}; gate passes (gates + gates_bwd) {gates_ms}; scratch "
+                      f"bytes {rec['workspace_bytes']}")
+                check((turns[1] + turns[2]) / 2 < rec["previous"]["ms"],
+                      f"mamba2_ssd_backward {what}: the tensor-core route is not faster than "
+                      f"the CUDA-core route it replaced: {turns}")
             records[key] = rec
             print(f"mamba2_ssd_backward {shape} {dt}: {rec['ms']:.3f} ms, plain "
                   f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
@@ -2755,6 +2810,102 @@ def flash_lse_cost(torch) -> dict:
         del q, k, v, lse
     release(torch)
     return out
+
+
+def gmm_bwd_copies_by_pass(torch, x, w, dy) -> dict:
+    """The replaced (copies) path's passes, each timed alone: the w^T
+    contiguous copy, the zero-and-copy of the padded x^T, and the forward
+    kernel's dx and dw products on those copies."""
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    (_, wt), (xt, _) = gmm.backward_operands(x, w, dy)
+    E, C, d = x.shape
+
+    def padded_xt():
+        buf = torch.zeros((E, d, -(-C // 8) * 8), dtype=x.dtype, device=x.device)
+        buf[:, :, :C].copy_(x.transpose(1, 2))
+
+    out = {"w_t_copy": time_ms(torch, lambda: w.transpose(1, 2).contiguous(), 10),
+           "x_t_pad_copy": time_ms(torch, padded_xt, 10),
+           "dx_product": time_ms(torch, lambda: gmm._launch(dy, wt), 10),
+           "dw_product": time_ms(torch, lambda: gmm._launch(xt, dy), 10)}
+    del wt, xt
+    return out
+
+
+def check_gmm_grads(torch) -> dict:
+    """Phase 8a's grouped-matmul backward: against autograd through the
+    plain version at olmoe's prefill, a ragged C and both training shapes,
+    both dtypes; bf16 reads x, w and dy in place (its only new memory is dx
+    and dw), timed in turns with the copies path it replaced, that path by
+    pass, and beside two ``torch.bmm``."""
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    records = {}
+    for what, E, C, d, f, seed in GMM_BWD_CASES:
+        for dt in ("bfloat16", "float32"):
+            (x, w), _, _ = gmm_case(torch, E, C, d, f, dt, seed=seed)
+            dy = torch.randn(E, C, f, generator=torch.Generator(device=DEVICE).manual_seed(C),
+                             device=DEVICE).to(x.dtype)
+            route = gmm.backward_route(x)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = gmm.grouped_matmul_backward(x, w, dy)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            outs = sum(g.numel() * g.element_size() for g in got)
+            want = gmm.grouped_matmul_backward_plain(x, w, dy)
+            res = [within(torch, a, b, GMM_BWD_TOL[dt],
+                          scale=max(1.0, b.float().square().mean().sqrt().item()))
+                   for a, b in zip(got, want)]
+            print(f"grouped_matmul backward {what} ({E},{C},{d})x({E},{d},{f}) {dt}: route "
+                  f"{route}, max_abs_err dx {res[0][0]:.3g} dw {res[1][0]:.3g}, within: "
+                  f"{all(ok for _, ok in res)}; memory the call allocated {extra} bytes, dx and "
+                  f"dw {outs}")
+            check(all(ok for _, ok in res), f"grouped_matmul backward {what} {dt} disagrees "
+                                            f"with its plain version: {res}")
+            if route == "in_place":
+                views = gmm.backward_views(x, w, dy)
+                shared = [a.data_ptr() == b.data_ptr() for a, b in
+                          ((views[0][1], w), (views[1][0], x), (views[0][0], dy))]
+                check(all(shared) and extra <= outs,
+                      f"grouped_matmul backward {what}: the in-place route copied an operand "
+                      f"(views share storage: {shared}; allocated {extra} bytes beyond x, w, dy "
+                      f"for {outs} bytes of dx and dw)")
+            if dt == "bfloat16" and what != "ragged":
+                wt = w.transpose(1, 2)
+                new = lambda: gmm.grouped_matmul_backward(x, w, dy)
+                old = lambda: gmm.grouped_matmul_backward(x, w, dy, route="copies")
+                turns = [time_ms(torch, fn, 10) for fn in (old, new, new, old)]
+                rec = dict(
+                    max_abs_err=max(r[0] for r in res),
+                    ms=(turns[1] + turns[2]) / 2,
+                    plain_ms=time_ms(torch, lambda: gmm.grouped_matmul_backward_plain(x, w, dy),
+                                     5),
+                    library_ms=time_ms(torch, lambda: (torch.bmm(dy, wt),
+                                                       torch.bmm(x.transpose(1, 2), dy)), 10),
+                    shape=f"dx, dw of (E={E},C={C},d={d})x(E,d,f={f}) bfloat16, route {route}",
+                    library="torch.bmm x2",
+                    previous={"route": "copies", "ms": (turns[0] + turns[3]) / 2,
+                              "turns_ms": turns,
+                              "by_pass_ms": gmm_bwd_copies_by_pass(torch, x, w, dy)},
+                    passes_ms=passes_ms(torch, new, GMM_BWD_PASSES, (turns[1] + turns[2]) / 2),
+                )
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    2 * (2 * E * C * d + E * d * f + E * C * f + E * d * f),
+                    2 * 2 * E * C * d * f, "bfloat16")
+                print(f"grouped_matmul backward {what} bf16: in place {rec['ms']:.4f} ms, copies "
+                      f"{rec['previous']['ms']:.4f} (turns {[f'{t:.4f}' for t in turns]}; by pass "
+                      f"{rec['previous']['by_pass_ms']}), two torch.bmm {rec['library_ms']:.4f}, "
+                      f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}); device ms by product "
+                      f"{rec['passes_ms']}")
+                # the training gate shape is the main path's; the others as sub-records
+                key = "grouped_matmul_backward" + ("" if what == "train_gate" else f"_{what}")
+                records[key] = rec
+            del x, w, dy, got, want
+        release(torch)
+    return records
 
 
 def check_kernel_grads(torch) -> dict:
@@ -2841,40 +2992,7 @@ def check_kernel_grads(torch) -> dict:
 
     print(f"grouped_matmul backward |kernel - plain| <= atol max(1, rms(plain)) + rtol |plain|, "
           f"(atol, rtol) = {GMM_BWD_TOL}")
-    for what, E, C, d, f, seed in GMM_BWD_CASES:
-        for dt in ("bfloat16", "float32"):
-            (x, w), _, _ = gmm_case(torch, E, C, d, f, dt, seed=seed)
-            dy = torch.randn(E, C, f, generator=torch.Generator(device=DEVICE).manual_seed(C),
-                             device=DEVICE).to(x.dtype)
-            got = gmm.grouped_matmul_backward(x, w, dy)
-            want = gmm.grouped_matmul_backward_plain(x, w, dy)
-            res = [within(torch, a, b, GMM_BWD_TOL[dt],
-                          scale=max(1.0, b.float().square().mean().sqrt().item()))
-                   for a, b in zip(got, want)]
-            print(f"grouped_matmul backward {what} ({E},{C},{d})x({E},{d},{f}) {dt}: dx route "
-                  f"{GMM_ROUTES[gmm.route(dy, w)]}, dw route "
-                  f"{GMM_ROUTES[gmm.route(x.transpose(1, 2), dy)]}, max_abs_err dx "
-                  f"{res[0][0]:.3g} dw {res[1][0]:.3g}, within: {all(ok for _, ok in res)}")
-            check(all(ok for _, ok in res), f"grouped_matmul backward {what} {dt} disagrees "
-                                            f"with its plain version: {res}")
-            if dt == "bfloat16" and what in ("prefill", "train_gate"):
-                wt = w.transpose(1, 2)
-                rec = dict(
-                    max_abs_err=max(r[0] for r in res),
-                    ms=time_ms(torch, lambda: gmm.grouped_matmul_backward(x, w, dy), 20),
-                    plain_ms=time_ms(torch, lambda: gmm.grouped_matmul_backward_plain(x, w, dy),
-                                     5),
-                    library_ms=time_ms(torch, lambda: (torch.bmm(dy, wt),
-                                                       torch.bmm(x.transpose(1, 2), dy)), 20),
-                    shape=f"dx, dw of (E={E},C={C},d={d})x(E,d,f={f}) bfloat16",
-                    library="torch.bmm x2",
-                )
-                rec["bound_ms"], rec["bound_by"] = bound(
-                    2 * (2 * E * C * d + E * d * f + E * C * f + E * d * f),
-                    2 * 2 * E * C * d * f, "bfloat16")
-                records[f"grouped_matmul_backward_{what}"] = rec
-            del x, w, dy, got, want
-        release(torch)
+    records.update(check_gmm_grads(torch))
 
     records.update(check_scan_grads(torch))
 
@@ -3005,9 +3123,11 @@ def train_launches(cfg, steps: int) -> tuple[dict, str]:
                 f"backward once; {apps} application(s) of the shared attention outside "
                 f"remat: flash forward and backward once each")
     return ({"flash_attention": 2 * L * steps, "flash_attention_backward": L * steps,
-             "grouped_matmul": 12 * L * steps if cfg.moe else 0},
+             "grouped_matmul": 6 * L * steps if cfg.moe else 0,
+             "grouped_matmul_backward": 3 * L * steps if cfg.moe else 0},
             "flash forward twice a layer under full remat, its backward once; 3 grouped-matmul "
-            "forwards a MoE layer, twice, and 2 backward launches each")
+            "forwards a MoE layer, twice, and one backward launch each (bf16: dx and dw in one "
+            "call)")
 
 
 def train_full(torch, arch: str, layers: int, steps: int) -> dict:
@@ -3563,7 +3683,7 @@ def main() -> int:
 
     extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
              "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled",
-             "lse_cost")
+             "lse_cost", "workspace_bytes", "gate_passes_ms")
     kernels = []
     for name, meta in KERNELS.items():
         rec = records[name]

@@ -115,6 +115,13 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (persistent grids
+    and the SSD backward's head blocks are sized by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def count(module_name: str, counter: str = "launches") -> None:
     """Add one to the module's ``counter`` under a lock.  Serving replicas on
     thread workers launch at once, and a bare ``launches += 1`` on a module

@@ -183,23 +183,25 @@ __device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// d (64 x 64, float32, the warpgroup's fragments) (+)= a (64 x 16, bf16,
-// K-major) * b (16 x 64, bf16, N-major: rows of b run along N); scale_d 0
-// overwrites d.  Fragment of thread t (warp w = t / 32, lane l): d[4 j + i]
-// is row 16 w + l / 4 + 8 (i / 2), column 8 j + 2 (l % 4) + i % 2.
-__device__ __forceinline__ void wgmma_m64n64k16_kn(float (&d)[32], uint64_t a, uint64_t b,
-                                                    int scale_d) {
+// d (64 x 64, float32, the warpgroup's fragments) (+)= a (64 x 16, bf16) *
+// b (16 x 64, bf16); scale_d 0 overwrites d.  kTransA 0: a K-major (its
+// rows run along K), 1: M-major; kTransB 0: b K-major, 1: N-major (its
+// rows run along N).  Fragment of thread t (warp w = t / 32, lane l):
+// d[4 j + i] is row 16 w + l / 4 + 8 (i / 2), column 8 j + 2 (l % 4) + i % 2.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // A 3-D tensor map of a bf16 tensor with dims (d0 innermost, d1, d2), byte

@@ -395,26 +395,47 @@ gmm_stream(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __rest
   }
 }
 
-// wgmma kernel (bf16, C > 8, prefill)
-constexpr int kWN = 128;                       // f columns of a tile (two 64-wide TMA boxes)
-constexpr int kWK = 64;                        // d per stage: one 128-byte swizzled row
-constexpr int kWSlabs = 4;                     // 64-row slabs of C a tile covers (256 rows)
+// wgmma kernel: out[e] (M x N) = A[e] (M x K) B[e] (K x N), bf16 operands
+// read in place through TMA maps.  The forward (C > 8, prefill) is M = C,
+// K = d, N = f with x K-major and w N-major; the backward's products are
+// dx = dy w^T (M = C, K = f, N = d: dy K-major, w^T K-major, since w[e]'s
+// rows run along f) and dw = x^T dy (M = d, K = C, N = f: x^T M-major,
+// since x[e]'s rows run along d; dy N-major).  The layouts are template
+// parameters: they fix which coordinate of each operand's map is
+// innermost, the shared-memory descriptors and wgmma's transpose bits.
+// Every box is 64 x 64 elements with the 128-byte swizzle, so a stage has
+// one layout whatever the operands'.
+constexpr int kWN = 128;                       // N columns of a tile (two 64-wide boxes)
+constexpr int kWK = 64;                        // K per stage
+constexpr int kWSlabs = 4;                     // 64-row slabs of M a tile covers (256 rows)
 constexpr int kWStages = 4;
 constexpr int kWThreads = 384;                 // producer warpgroup + 2 consumer warpgroups
-constexpr int kWSlabBytes = 64 * kWK * 2;      // 8 KB of x
-constexpr int kWBoxBytes = kWK * 64 * 2;       // 8 KB: one 64-column box of w
+constexpr int kWSlabBytes = 64 * kWK * 2;      // 8 KB: one 64 x 64 box of A
+constexpr int kWBoxBytes = kWK * 64 * 2;       // 8 KB: one 64 x 64 box of B
 constexpr int kWStageBytes = kWSlabs * kWSlabBytes + 2 * kWBoxBytes;
 constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes;
 
+// Operand layouts of a wgmma product (template parameter of gmm_wgmma).
+struct FwdLayout {  // out = x w: A K-major, B N-major; tiles (256-row chunk, expert, N tile)
+  static constexpr bool kAMajorM = false, kBMajorK = false, kExpertOuter = false;
+};
+struct DxLayout {   // dx = dy w^T: A K-major, B K-major; tiles (expert, chunk, N tile)
+  static constexpr bool kAMajorM = false, kBMajorK = true, kExpertOuter = true;
+};
+struct DwLayout {   // dw = x^T dy: A M-major, B N-major; tiles (expert, chunk, N tile)
+  static constexpr bool kAMajorM = true, kBMajorK = false, kExpertOuter = true;
+};
+
+template <class Lay>
 __global__ void __launch_bounds__(kWThreads, 1)
-gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-          __nv_bfloat16* __restrict__ out, int E, int C, int F, int nk, int ntiles,
+gmm_wgmma(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+          __nv_bfloat16* __restrict__ out, int E, int M, int N, int nk, int ntiles,
           int64_t o_se, int64_t o_sc) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kWStages], empty[kWStages];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int nf = (F + kWN - 1) / kWN;
+  const int nf = (N + kWN - 1) / kWN, nm = (M + kWSlabs * 64 - 1) / (kWSlabs * 64);
   const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
@@ -424,27 +445,47 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     mbar_fence_init();
   }
   __syncthreads();
+  // tile t: (256-row chunk of M, expert, N tile), full chunks first, or
+  // (expert, chunk, N tile), so one expert's operands stay in L2 while its
+  // tiles run; block b takes tiles b, b + gridDim.x, ...
+  auto tile_of = [&](int t, int& mi, int& e, int& fi) {
+    fi = t % nf;
+    if (Lay::kExpertOuter) {
+      mi = (t / nf) % nm;
+      e = t / (nf * nm);
+    } else {
+      e = (t / nf) % E;
+      mi = t / (E * nf);
+    }
+  };
 
-  // tile t: (256-row chunk of C, expert, f tile), full chunks first; block b
-  // takes tiles b, b + gridDim.x, ...
   if (wg == 0) {  // producer warpgroup: one thread starts the TMA loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tw == 0) {
       int it = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int mi = t / (E * nf), e = (t / nf) % E, fi = t % nf;
+        int mi, e, fi;
+        tile_of(t, mi, e, fi);
         const int row0 = mi * kWSlabs * 64;
-        const int nslab = min(kWSlabs, (C - row0 + 63) / 64);
+        const int nslab = min(kWSlabs, (M - row0 + 63) / 64);
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % kWStages;
           mbar_wait(&empty[s], ((it / kWStages) & 1) ^ 1);
           unsigned char* st = smem + s * kWStageBytes;
           mbar_expect_tx(&full[s], nslab * kWSlabBytes + 2 * kWBoxBytes);
-          for (int sl = 0; sl < nslab; ++sl)
-            tma_load_3d(st + sl * kWSlabBytes, &xmap, &full[s], kt * kWK, row0 + sl * 64, e);
+          for (int sl = 0; sl < nslab; ++sl) {
+            if (Lay::kAMajorM)   // map (M, K, E)
+              tma_load_3d(st + sl * kWSlabBytes, &amap, &full[s], row0 + sl * 64, kt * kWK, e);
+            else                 // map (K, M, E)
+              tma_load_3d(st + sl * kWSlabBytes, &amap, &full[s], kt * kWK, row0 + sl * 64, e);
+          }
           unsigned char* bs = st + kWSlabs * kWSlabBytes;
-          tma_load_3d(bs, &wmap, &full[s], fi * kWN, kt * kWK, e);
-          tma_load_3d(bs + kWBoxBytes, &wmap, &full[s], fi * kWN + 64, kt * kWK, e);
+          for (int h = 0; h < 2; ++h) {
+            if (Lay::kBMajorK)   // map (K, N, E)
+              tma_load_3d(bs + h * kWBoxBytes, &bmap, &full[s], kt * kWK, fi * kWN + h * 64, e);
+            else                 // map (N, K, E)
+              tma_load_3d(bs + h * kWBoxBytes, &bmap, &full[s], fi * kWN + h * 64, kt * kWK, e);
+          }
         }
       }
     }
@@ -454,9 +495,10 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     float acc[kWSlabs][32];
     int it = 0, held = -1;  // held: the stage whose products may still be in flight
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int mi = t / (E * nf), e = (t / nf) % E, fi = t % nf;
+      int mi, e, fi;
+      tile_of(t, mi, e, fi);
       const int row0 = mi * kWSlabs * 64;
-      const int nslab = min(kWSlabs, (C - row0 + 63) / 64);
+      const int nslab = min(kWSlabs, (M - row0 + 63) / 64);
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % kWStages;
         mbar_wait(&full[s], (it / kWStages) & 1);
@@ -467,16 +509,21 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kWK / 16; ++kk) {
-          // w (N-major): this warpgroup's 64-column box, 16 rows of 128 bytes
-          // per k step, 8-row groups 1024 bytes apart (SBO)
-          const uint64_t db = wgmma_desc(bs + kk * 16 * 128, kWBoxBytes, 1024);
+          // a 16-deep step: 32 bytes along a K-major box's swizzled rows,
+          // or 16 rows of 128 bytes of an MN-major box; 8-row groups 1024
+          // bytes apart (SBO)
+          const uint64_t db = Lay::kBMajorK ? wgmma_desc(bs + kk * 32, 16, 1024)
+                                            : wgmma_desc(bs + kk * 16 * 128, kWBoxBytes, 1024);
           const int scale = kt > 0 || kk > 0;
-          // x (K-major): a k step is 32 bytes along the swizzled row
 #pragma unroll
-          for (int sl = 0; sl < kWSlabs; ++sl)
+          for (int sl = 0; sl < kWSlabs; ++sl) {
+            const unsigned char* as = st + sl * kWSlabBytes;
+            const uint64_t da = Lay::kAMajorM ? wgmma_desc(as + kk * 16 * 128, kWSlabBytes, 1024)
+                                              : wgmma_desc(as + kk * 32, 16, 1024);
             if (sl < nslab)
-              wgmma_m64n64k16_kn(acc[sl], wgmma_desc(st + sl * kWSlabBytes + kk * 32, 16, 1024),
-                                 db, scale);
+              wgmma_m64n64k16<Lay::kAMajorM ? 1 : 0, Lay::kBMajorK ? 0 : 1>(acc[sl], da, db,
+                                                                             scale);
+          }
         }
         wgmma_commit();
         // one stage of products stays in flight: once the previous stage's
@@ -492,7 +539,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
       held = -1;
       // epilogue, while the producer loads the next tile: bf16 pairs from
       // the fragments (single elements where a pair is not 4-byte aligned
-      // or reaches past f); d[4 j + i] of slab sl is row 64 sl + 16 warp +
+      // or reaches past N); d[4 j + i] of slab sl is row 64 sl + 16 warp +
       // lane / 4 + 8 (i / 2), column 64 c + 8 j + 2 (lane % 4) + i % 2
       __nv_bfloat16* oe = out + e * o_se;
       const bool pairs = o_se % 2 == 0 && o_sc % 2 == 0;
@@ -506,12 +553,12 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
           for (int hr = 0; hr < 2; ++hr) {
             const int row = row0 + sl * 64 + warp * 16 + lane / 4 + 8 * hr;
             const float v0 = acc[sl][4 * j + 2 * hr], v1 = acc[sl][4 * j + 2 * hr + 1];
-            if (row >= C || col >= F) continue;
-            if (pairs && col + 1 < F) {
+            if (row >= M || col >= N) continue;
+            if (pairs && col + 1 < N) {
               *reinterpret_cast<unsigned*>(oe + row * o_sc + col) = pack_bf16(v0, v1);
             } else {
               store(oe + row * o_sc + col, v0);
-              if (col + 1 < F) store(oe + row * o_sc + col + 1, v1);
+              if (col + 1 < N) store(oe + row * o_sc + col + 1, v1);
             }
           }
         }
@@ -544,25 +591,58 @@ int launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16*
   return cudaGetLastError();
 }
 
+// A 64 x 64 box map of a bf16 (d0 innermost, d1, E) operand whose two
+// outer element strides are s1 (along d1) and s2 (along E)
+inline bool box_map(CUtensorMap* map, const __nv_bfloat16* p, int d0, int d1, int E,
+                    long long s1, long long s2) {
+  return encode_tensor_map(map, p, d0, d1, E, map_stride(s1, d1), map_stride(s2, E), 64, 64,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <class Lay>
+int launch_product(const CUtensorMap& amap, const CUtensorMap& bmap, __nv_bfloat16* out, int E,
+                   int M, int N, int K, int grid, long long o_se, long long o_sc,
+                   cudaStream_t stream) {
+  cudaError_t err = allow_smem_once<gmm_wgmma<Lay>>(kWSmem);
+  if (err != cudaSuccess) return err;
+  const int nf = (N + kWN - 1) / kWN, nm = (M + kWSlabs * 64 - 1) / (kWSlabs * 64);
+  const int ntiles = nm * E * nf;
+  if (grid < 1) return kUnsupported;
+  gmm_wgmma<Lay><<<min(grid, ntiles), kWThreads, kWSmem, stream>>>(
+      amap, bmap, out, E, M, N, (K + kWK - 1) / kWK, ntiles, o_se, o_sc);
+  return cudaGetLastError();
+}
+
 int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* out, int E,
                  int C, int D, int F, int grid, const long long* st, cudaStream_t stream) {
-  // x as (d, C, E), w as (f, d, E): 64 x 64 boxes, 128-byte swizzle; x is
-  // a new activation every call, w's map comes from the table
+  // x as (d, C, E), w as (f, d, E); x is a new activation every call, w's
+  // map comes from the table
   CUtensorMap xmap;
   const CUtensorMap* wmap = cached_tensor_map(w, F, D, E, map_stride(st[3], D),
                                               map_stride(st[2], E), 64, kWK,
                                               CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!wmap || !encode_tensor_map(&xmap, x, D, C, E, map_stride(st[1], C),
-                                  map_stride(st[0], E), kWK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
-    return kTensorMap;
-  cudaError_t err = allow_smem_once<gmm_wgmma>(kWSmem);
-  if (err != cudaSuccess) return err;
-  const int nf = (F + kWN - 1) / kWN, nm = (C + kWSlabs * 64 - 1) / (kWSlabs * 64);
-  const int ntiles = nm * E * nf;
-  if (grid < 1) return kUnsupported;
-  gmm_wgmma<<<min(grid, ntiles), kWThreads, kWSmem, stream>>>(
-      xmap, *wmap, out, E, C, F, (D + kWK - 1) / kWK, ntiles, st[4], st[5]);
-  return cudaGetLastError();
+  if (!wmap || !box_map(&xmap, x, D, C, E, st[1], st[0])) return kTensorMap;
+  return launch_product<FwdLayout>(xmap, *wmap, out, E, C, F, D, grid, st[4], st[5], stream);
+}
+
+// dx = dy w^T and dw = x^T dy, one product each, reading x (E, C, d), w (E,
+// d, f) and dy (E, C, f) where they lie.  st: element strides (x_se, x_sc,
+// w_se, w_sd, dy_se, dy_sc, dx_se, dx_sc, dw_se, dw_sd).
+int launch_backward(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* dy,
+                    __nv_bfloat16* dx, __nv_bfloat16* dw, int E, int C, int D, int F, int grid,
+                    const long long* st, cudaStream_t stream) {
+  CUtensorMap dymap, xmap;
+  // dx: A = dy as (f, C, E), B = w^T as w's (f, d, E), from the table
+  const CUtensorMap* wmap = cached_tensor_map(w, F, D, E, map_stride(st[3], D),
+                                              map_stride(st[2], E), 64, kWK,
+                                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!wmap || !box_map(&dymap, dy, F, C, E, st[5], st[4])) return kTensorMap;
+  int err = launch_product<DxLayout>(dymap, *wmap, dx, E, C, D, F, grid, st[6], st[7], stream);
+  if (err != 0) return err;
+  // dw: A = x^T as x's (d, C, E), B = dy as (f, C, E): both maps box 64 x
+  // 64, so dy's serves again; the contraction over C reads zeros past C
+  if (!box_map(&xmap, x, D, C, E, st[1], st[0])) return kTensorMap;
+  return launch_product<DwLayout>(xmap, dymap, dw, E, D, F, C, grid, st[8], st[9], stream);
 }
 
 int launch_f32(int route, const float* x, const float* w, float* out, int E, int C, int D, int F,
@@ -591,6 +671,26 @@ int launch_bf16(int route, int grid, const __nv_bfloat16* x, const __nv_bfloat16
 
 }  // namespace
 }  // namespace ham
+
+// (dx, dw) of out = x w for the gradient dy of out, bf16: x (E, C, d), w (E,
+// d, f), dy and dx, dw of their shapes, every operand read in place
+// through its element strides (unit last dim; bases and outer strides
+// 16-byte aligned): st = (x_se, x_sc, w_se, w_sd, dy_se, dy_sc, dx_se,
+// dx_sc, dw_se, dw_sd); grid: persistent blocks of each product.  Two
+// launches of the wgmma kernel.  Returns 0 or the launch error.
+extern "C" int ham_grouped_matmul_backward(const void* x, const void* w, const void* dy, void* dx,
+                                           void* dw, int E, int C, int D, int F, int grid,
+                                           const long long* st, int device, void* stream) {
+  if (E == 0 || D == 0 || F == 0) return 0;
+  if (C == 0) return ham::kUnsupported;  // dw would be zeros the kernel does not write
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using B16 = __nv_bfloat16;
+  return ham::launch_backward(static_cast<const B16*>(x), static_cast<const B16*>(w),
+                              static_cast<const B16*>(dy), static_cast<B16*>(dx),
+                              static_cast<B16*>(dw), E, C, D, F, grid, st,
+                              static_cast<cudaStream_t>(stream));
+}
 
 // x (E, C, d), w (E, d, f), out (E, C, f): element strides of the two outer
 // dims (the last dim is contiguous; bases and outer strides 16-byte

@@ -24,6 +24,16 @@ What the design does about it (:func:`route` picks the kernel):
 * float32 takes ``skinny`` (C <= 8) or ``tiled`` on the CUDA cores (TF32
   would miss the float32 tolerance).  Nothing routes to the plain version.
 
+The gradient (:class:`_GroupedMatmul`, :func:`grouped_matmul_backward`)
+is dx = dy w^T and dw = x^T dy.  bf16 runs both products on the wgmma
+kernel in one call of ``ham_grouped_matmul_backward``, which reads x, w and
+dy where they lie (:func:`backward_views`): dy K-major and w^T K-major
+(w's rows run along f) for dx, x^T M-major (x's rows run along d) and dy
+N-major for dw, the layouts fixed by the kernel's template parameters and
+the contraction of dw over a ragged C reading TMA's zeros past the edge.
+float32 runs the forward kernel twice on transposed copies
+(:func:`backward_operands`): ``tiled`` needs a unit last stride.
+
 Every view the wrapper accepts (16-byte aligned base and outer strides:
 ``_build.check_inputs``) is one TMA can read; a ragged d or f reads as
 zeros past the edge.  All kernels read x and w through strides, so a
@@ -35,7 +45,6 @@ per-expert counts as an input, which the Pallas kernel does not take).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -45,6 +54,7 @@ from repro_torch.kernels.ref import grouped_matmul_ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_grouped_matmul": [_P] * 3 + [_I] * 7 + [_L] * 6 + [_I, _P],
+    "ham_grouped_matmul_backward": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
 }
 #: route codes of the C interface (csrc/grouped_matmul.cu ``Route``)
 ROUTES = {"skinny": 0, "tiled": 1, "stream": 2, "wgmma": 3}
@@ -54,6 +64,9 @@ WGMMA_M = 256          # rows of C a wgmma tile covers (csrc kWSlabs x 64)
 
 #: kernel launches made by :func:`grouped_matmul` (plain calls not counted)
 launches = 0
+#: launches of the bf16 backward kernel (:func:`grouped_matmul_backward`),
+#: one per gradient (its two products are one call)
+launches_backward = 0
 
 
 def grouped_matmul_plain(x, w):
@@ -74,20 +87,44 @@ def grouped_matmul(x, w):
     return _launch(x, w)
 
 
-def grouped_matmul_backward(x, w, dy):
-    """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient ``dy``,
-    each computed by the kernel itself: dx = dy w^T and dw = x^T dy, on
-    transposed contiguous operands.  dw contracts over the capacity dim,
-    which may be ragged: x^T is stored with its rows padded to a multiple
-    of 8 elements (16 bytes), and the kernel reads zeros past C."""
+def grouped_matmul_backward(x, w, dy, *, route=None):
+    """(dx, dw) of ``grouped_matmul(x, w)`` for the output gradient ``dy``:
+    dx = dy w^T and dw = x^T dy, each computed by a kernel.  The route
+    (:func:`backward_route`): ``in_place`` (bf16) launches the backward
+    kernel on x, w and dy where they lie; ``copies`` (float32) runs the
+    forward kernel twice on :func:`backward_operands`' transposed copies.
+    ``route="copies"`` on bf16 inputs times the path ``in_place`` replaced."""
+    if (route or backward_route(x)) == "in_place":
+        return _launch_backward(x, w, dy)
     return tuple(_launch(a, b) for a, b in backward_operands(x, w, dy))
 
 
+def backward_route(x) -> str:
+    """``in_place`` for bf16 (TMA reads either orientation of a 16-byte
+    aligned matrix), ``copies`` for float32 (``tiled`` needs a unit last
+    stride, so its operands are transposed copies)."""
+    return "in_place" if x.dtype == torch.bfloat16 else "copies"
+
+
+def _dy_view(dy):
+    # autograd may hand a gradient with a broadcast or unaligned layout
+    return dy if _build._aligned(dy) and dy.stride(-1) == 1 else dy.contiguous()
+
+
+def backward_views(x, w, dy):
+    """The operand pairs of the ``in_place`` route's two products, ((dy,
+    w^T), (x^T, dy)): views of x, w and dy (dy copied only where autograd
+    hands it unaligned), whose strides the kernel reads."""
+    dy = _dy_view(dy)
+    return (dy, w.transpose(1, 2)), (x.transpose(1, 2), dy)
+
+
 def backward_operands(x, w, dy):
-    """The operand pairs of :func:`grouped_matmul_backward`'s two products,
-    ((dy, w^T), (x^T, dy)), each a view the kernel takes."""
-    if not _build._aligned(dy) or dy.stride(-1) != 1:
-        dy = dy.contiguous()
+    """The operand pairs of the ``copies`` route's two products, ((dy,
+    w^T), (x^T, dy)), each a view the forward kernel takes: w^T a
+    contiguous copy, x^T a copy with rows padded to a multiple of 8
+    elements (16 bytes), viewed at C (the kernel reads zeros past C)."""
+    dy = _dy_view(dy)
     E, C, d = x.shape
     xt = torch.zeros((E, d, -(-C // 8) * 8), dtype=x.dtype, device=x.device)
     xt[:, :, :C].copy_(x.transpose(1, 2))
@@ -125,11 +162,6 @@ def route(x, w) -> str:
     return "skinny" if decode else "tiled"
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @_build.counted
 def _launch(x, w):
     """Launch the kernel of :func:`route`."""
@@ -142,7 +174,7 @@ def _launch(x, w):
     r = route(x, w)
     grid = 0
     if r == "wgmma":   # one persistent block per SM, or per tile if fewer
-        grid = min(-(-C // WGMMA_M) * E * -(-f // WGMMA_N), _sm_count(x.device.index))
+        grid = min(-(-C // WGMMA_M) * E * -(-f // WGMMA_N), _build.sm_count(x.device.index))
     lib = _build.library("grouped_matmul", _SIGNATURES)
     err = lib.ham_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f, dtype, ROUTES[r], grid,
@@ -151,3 +183,34 @@ def _launch(x, w):
     )
     _build.check(lib, err, f"grouped_matmul ({r})")
     return out
+
+
+def _launch_backward(x, w, dy):
+    """Launch the bf16 backward kernel: (dx, dw), new contiguous tensors."""
+    (dy, wt), (xt, _) = backward_views(x, w, dy)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"grouped_matmul backward kernel takes bf16, got {x.dtype}")
+    _build.check_inputs("grouped_matmul backward", (x, w, dy))
+    E, C, d = x.shape
+    f = w.shape[-1]
+    if w.shape != (E, d, f) or dy.shape != (E, C, f):
+        raise ValueError(f"grouped_matmul backward shapes x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)} dy {tuple(dy.shape)}")
+    dx = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
+    dw = torch.empty((E, d, f), dtype=x.dtype, device=x.device)
+    if C == 0:
+        return dx, dw.zero_()
+    # the kernel's element strides, read from the views it multiplies:
+    # x^T (E, d, C) is (x_se, 1, x_sc), w^T (E, f, d) is (w_se, 1, w_sd)
+    strides = (ctypes.c_longlong * 10)(
+        xt.stride(0), xt.stride(2), wt.stride(0), wt.stride(2), *dy.stride()[:2],
+        *dx.stride()[:2], *dw.stride()[:2])
+    lib = _build.library("grouped_matmul", _SIGNATURES)
+    err = lib.ham_grouped_matmul_backward(
+        xt.data_ptr(), wt.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), E, C, d, f,
+        _build.sm_count(x.device.index), ctypes.addressof(strides), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "grouped_matmul backward")
+    _build.count(__name__, "launches_backward")
+    return dx, dw

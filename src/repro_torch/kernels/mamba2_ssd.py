@@ -49,14 +49,18 @@ until it divides S.
 
 Under autograd (grad enabled and an input that requires grad) a CUDA call
 with no initial state goes through :class:`_SSD`, whose backward launches
-``csrc/mamba2_ssd_bwd.cu`` (float32 on the CUDA cores: h at chunk starts
-recomputed in float32, dh carried over the chunks in reverse, dB and dC
-summed over each group's heads and dA, dD over the sequences in a fixed
-order, no atomics; see the source's note).  The backward covers the
-gradient of y: a call under grad with an initial state, or whose loss
-reaches the final state, raises (ROADMAP Queue 1 item 12f).  Otherwise a
-call launches the forward exactly as before, so serving's launches and
-times do not move.
+``csrc/mamba2_ssd_bwd.cu``.  Its gate passes run a warp per (sequence,
+head, chunk) on both routes; bf16 at N = P = 64 and chunk <= 256
+(:func:`backward_route`) takes the tensor cores: h and dh walked on
+``mma.sync``, then a row pass and a column pass per 64-position tile that
+recompute M and dCB per tile in shared memory (never stored) and sum dB
+and dC over blocks of each group's heads; float32 keeps the CUDA-core
+passes (h at chunk starts recomputed in float32, M and dCB stored per
+head).  No atomics on either route; see the source's note.  The backward
+covers the gradient of y: a call under grad with an initial state, or
+whose loss reaches the final state, raises (ROADMAP Queue 1 item 12f).
+Otherwise a call launches the forward exactly as before, so serving's
+launches and times do not move.
 """
 
 from __future__ import annotations
@@ -71,14 +75,17 @@ from repro_torch.kernels.ref import divisor_chunk, ssd_chunk_ref
 STATE_DIM = 64   # N
 HEAD_DIM = 64    # P
 MAX_CHUNK = 256  # csrc/mamba2_ssd.cu kMaxL: one position per thread in the scan
+#: csrc/mamba2_ssd_bwd.cu kTcMaxL: the backward's tensor-core route takes
+#: chunks up to this (a row of C B^T tiles in shared memory)
+TC_BWD_MAX_CHUNK = 256
 _TILE = 64       # csrc/mamba2_ssd.cu kT: the chunk is padded to a multiple of it
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_ssd_chunked": [_P] * 14 + [_I] * 10 + [_L] * 15 + [_I, _P],
 }
 _BWD_SIGNATURES = {
-    "ham_ssd_bwd_workspace": [_I] * 7 + [_P],
-    "ham_ssd_bwd": [_P] * 14 + [_I] * 8 + [_P, _I, _P],
+    "ham_ssd_bwd_workspace": [_I] * 10 + [_P],
+    "ham_ssd_bwd": [_P] * 14 + [_I] * 10 + [_P, _I, _P],
 }
 
 #: kernel launches made by :func:`ssd_chunked` (plain calls not counted)
@@ -232,10 +239,34 @@ def _scratch(chunks, Lp, device):
     return buf, ptrs
 
 
-def _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk):
+def backward_route(x, Bm, chunk) -> str:
+    """The backward's route: ``tensor_cores`` for bf16 at N = P = 64 and
+    a chunk of at most :data:`TC_BWD_MAX_CHUNK` (``mma.sync`` tiles of 64),
+    else ``cuda_cores``."""
+    ok = (x.dtype == torch.bfloat16 and x.shape[-1] == HEAD_DIM
+          and Bm.shape[-1] == STATE_DIM and min(chunk, x.shape[1]) <= TC_BWD_MAX_CHUNK)
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def backward_workspace(x, Bm, chunk, kernel=None) -> int:
+    """Bytes of scratch the backward takes on ``kernel`` (default: its
+    route) for these shapes."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    tc = (kernel or backward_route(x, Bm, chunk)) == "tensor_cores"
+    lib = _build.library("mamba2_ssd_bwd", _BWD_SIGNATURES)
+    nbytes = ctypes.c_longlong()
+    _build.check(lib, lib.ham_ssd_bwd_workspace(
+        B, S, H, G, N, P, min(chunk, S), _build.DTYPE_CODES[x.dtype], int(tc),
+        _build.sm_count(x.device.index), ctypes.byref(nbytes)), "ssd backward")
+    return nbytes.value
+
+
+def _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk, kernel=None):
     """Launch the backward kernel: (dx, ddt, dA, dBm, dCm, dD), new
-    contiguous tensors; one float32 scratch buffer (csrc/mamba2_ssd_bwd.cu's
-    layout)."""
+    contiguous tensors; one scratch buffer (csrc/mamba2_ssd_bwd.cu's
+    layout).  ``kernel="cuda_cores"`` overrides :func:`backward_route`
+    (for timing the CUDA-core route on bf16 inputs)."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if dy.stride(-1) != 1 or not _build._aligned(dy):
@@ -254,17 +285,16 @@ def _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk):
         raise ValueError("ssd A and D must be contiguous")
     if chunk < 1:
         raise ValueError(f"ssd chunk must be positive, got {chunk}")
-    L = min(chunk, S)
+    tc = (kernel or backward_route(x, Bm, chunk)) == "tensor_cores"
+    work = torch.empty(backward_workspace(x, Bm, chunk, kernel), dtype=torch.uint8,
+                       device=x.device)
     lib = _build.library("mamba2_ssd_bwd", _BWD_SIGNATURES)
-    nbytes = ctypes.c_longlong()
-    _build.check(lib, lib.ham_ssd_bwd_workspace(B, S, H, G, N, P, L, ctypes.byref(nbytes)),
-                 "ssd backward")
-    work = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
     strided = (x, Bm, Cm, dy, dt, dx, dBm, dCm, ddt)
     strides = (ctypes.c_longlong * 27)(*(s for t in strided for s in t.stride()[:3]))
     err = lib.ham_ssd_bwd(
         *(t.data_ptr() for t in (x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dBm, dCm, dD)),
-        work.data_ptr(), B, S, H, G, N, P, L, dtype, ctypes.addressof(strides),
+        work.data_ptr(), B, S, H, G, N, P, min(chunk, S), dtype, int(tc),
+        _build.sm_count(x.device.index), ctypes.addressof(strides),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "ssd backward")

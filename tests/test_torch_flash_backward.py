@@ -28,8 +28,13 @@
   launches swapped for the plain versions: the forward saves the LSE and
   the backward receives it, with no second forward; a backward called
   without an LSE launches the forward once to write it; the grouped-matmul
-  backward's transposed, padded operands against the plain autograd
-  (float32 2e-5, a ragged capacity included).
+  backward's transposed, padded operands (the float32 route) against the
+  plain autograd (float32 2e-5, a ragged capacity included).
+* the grouped-matmul backward's bf16 operand plan: the views it hands
+  the kernel share storage with x, w and dy and carry the strides the
+  kernel reads, and plain products on them equal the plain backward
+  at a ragged and an aligned capacity (C 37, 160); bf16 makes one backward
+  launch, float32 and ``route="copies"`` two forward launches.
 * the decode wrappers raise under grad for a non-CPU request (``meta``
   tensors, as the dispatch tests of ``test_torch_package.py``), before any
   launch; the mLSTM and SSD wrappers take their autograd Functions there
@@ -368,6 +373,58 @@ def test_grouped_matmul_backward_operands(C):
     for got, ref in zip((gmm.grouped_matmul_plain(a0, b0), gmm.grouped_matmul_plain(a1, b1)),
                         want):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("C", [37, 160])
+def test_grouped_matmul_backward_views_share_storage(C):
+    """The bf16 route's operand plan: dx = dy w^T and dw = x^T dy on views of
+    x, w and dy (the same storage, no copy), with the strides the kernel
+    reads from them (x^T (x_se, 1, x_sc), w^T (w_se, 1, w_sd)); plain
+    products on those views equal the plain backward, at a ragged and an
+    aligned C."""
+    rng = np.random.default_rng(C)
+    E, d, f = 4, 48, 40
+    x = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, d, f)).astype(np.float32)).to(torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((E, C, f)).astype(np.float32)).to(torch.bfloat16)
+    assert gmm.backward_route(x) == "in_place"
+    (a0, b0), (a1, b1) = gmm.backward_views(x, w, dy)
+    for view, base in ((a0, dy), (b0, w), (a1, x), (b1, dy)):
+        assert view.untyped_storage().data_ptr() == base.untyped_storage().data_ptr()
+        assert view.data_ptr() == base.data_ptr()
+    assert b0.shape == (E, f, d) and b0.stride() == (w.stride(0), 1, w.stride(1))
+    assert a1.shape == (E, d, C) and a1.stride() == (x.stride(0), 1, x.stride(1))
+    want = gmm.grouped_matmul_backward_plain(x.float(), w.float(), dy.float())
+    for got, ref in zip((gmm.grouped_matmul_plain(a0.float(), b0.float()),
+                         gmm.grouped_matmul_plain(a1.float(), b1.float())), want):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("dtype, route, launches", [
+    (torch.bfloat16, "in_place", ["backward"]),
+    (torch.float32, "copies", ["forward", "forward"]),
+])
+def test_grouped_matmul_backward_takes_its_route(monkeypatch, dtype, route, launches):
+    """bf16 makes one call of the backward kernel on the views; float32 (or
+    ``route="copies"``, which times the replaced path) two forward calls on
+    the transposed copies."""
+    seen = []
+    monkeypatch.setattr(gmm, "_launch", lambda a, b: seen.append("forward")
+                        or gmm.grouped_matmul_plain(a, b))
+    monkeypatch.setattr(gmm, "_launch_backward", lambda x, w, dy: seen.append("backward")
+                        or tuple(gmm.grouped_matmul_plain(a, b)
+                                 for a, b in gmm.backward_views(x, w, dy)))
+    rng = np.random.default_rng(1)
+    x, w, dy = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+                for s in ((3, 13, 24), (3, 24, 16), (3, 13, 16)))
+    assert gmm.backward_route(x) == route
+    got = gmm.grouped_matmul_backward(x, w, dy)
+    assert seen == launches
+    seen.clear()
+    again = gmm.grouped_matmul_backward(x, w, dy, route="copies")
+    assert seen == ["forward", "forward"]
+    for a, b in zip(got, again):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), atol=ATOL, rtol=ATOL)
 
 
 def test_grouped_matmul_autograd_function_plumbing(monkeypatch):
