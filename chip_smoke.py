@@ -27,7 +27,9 @@ Phases, in order; any failure raises and exits non-zero:
    whole, beside the bf16 kernel and SDPA on the dequantized cache), with
    whisper-large-v3's encoder and cross-attention flash (Sq 448, Skv 1500)
    and its cross-attention decode (1500 frames); both attention kernels at
-   nemotron-4-340b's head_dim 192, float32 and bfloat16, timed too;
+   nemotron-4-340b's head_dim 192, float32 and bfloat16, timed too; the
+   decode kernel's row log-sum-exp (``lse=``) against the plain one, and
+   the kernel timed with it and without in turns;
 4. model checks: internlm2-20b, olmoe-1b-7b and qwen2-moe-a2.7b at full
    width cut to 2 layers, xlstm-1.3b cut to one group of 8 layers and
    zamba2-2.7b cut to 2 groups (12 Mamba2 blocks, 2 shared-block
@@ -115,10 +117,24 @@ Phases, in order; any failure raises and exits non-zero:
    peak memory and a profiled step; 8d restarts a narrow
    internlm2-shaped trainer from its checkpoint on the card and holds the
    next 3 losses to the uninterrupted run's within 1e-6;
-9. print the kernel line, one serving line per model, the phase 5b line,
-   the cluster serving line, the process-fabrics line and the train line
-   (JSON);
-10. last line: ``{"ok": true, "device": {...}}``.
+9. sharding and launch, through a 1 x 1 ("data", "model") DTensor mesh
+   over a one-rank NCCL group: 9a trains phase 8's internlm2-20b cell
+   through ``Trainer(sharder=)`` (every param and moment a DTensor; the
+   losses phase 8's within 1e-5 relative, flash launches exact, step time
+   and peak memory beside phase 8's); 9b decodes internlm2-20b at all 48
+   layers in bf16 (a 1024-token prefill, 16 steps) and 9c olmoe-1b-7b with
+   its experts on the model axis (EP), each sharded beside unsharded on
+   the same params: logits within 1e-3, greedy tokens identical, exact
+   launches a step; 9d the H100 roofline of 9a's and 9b's steps, counted
+   by ``launch/op_analysis.py`` on ``meta`` in a fresh interpreter, each
+   measured time at least 0.95x its bound; 9e (host only, fresh
+   interpreters beside 9a-9d) ``python -m repro_torch.launch.dryrun`` of
+   internlm2-20b train_4k and decode_32k and llama3-405b train_4k on
+   pod16x16 (256 fake ranks), per-GPU bytes against 80 GB;
+10. print the kernel line, one serving line per model, the phase 5b line,
+   the cluster serving line, the process-fabrics line, the train line and
+   the sharded line (JSON);
+11. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 """
@@ -448,6 +464,66 @@ def ptxas_summary(log: str) -> list[tuple[str, str, str]]:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
+# the decode kernel's row log-sum-exp (``lse=``, what a sequence-split
+# cache's shards merge by) against the plain one: |kernel - plain| <=
+# LSE_ATOL (phase 8's flash LSE limit); (B, Hkv, qpk, S, d, dtype, lengths)
+DECODE_LSE_CASES = [
+    (8, 8, 6, 2048, 128, "bfloat16", [1, 2, 127, 128, 129, 2047, 2048, 5000]),
+    (8, 8, 6, 2048, 128, "float32", [1, 2, 127, 128, 129, 2047, 2048, 5000]),
+    (4, 16, 1, 1024, 128, "bfloat16", [1, 37, 511, 5000]),
+    (2, 2, 3, 300, 80, "float32", [1, 300]),
+    (8, 20, 1, 1500, 64, "bfloat16", [1, 4, 63, 64, 65, 700, 1499, 1500]),
+    (2, 8, 12, 512, 192, "bfloat16", [33, 512]),
+]
+
+
+def check_decode_lse(torch) -> dict:
+    """Phase 3: the decode kernel with its LSE output held against the
+    plain LSE (and its output against the plain version, as without), then
+    timed with the flag on and off in turns (off, on, on, off) at
+    internlm2-20b's serving shape."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    worst = 0.0
+    for i, (B, Hkv, qpk, S, d, dt, lens) in enumerate(DECODE_LSE_CASES):
+        (q, k, v, lengths), _, want = decode_case(torch, B, Hkv, qpk, S, d, dt, lens,
+                                                  seed=300 + i)
+        lse = torch.empty((B, Hkv * qpk), dtype=torch.float32, device=DEVICE)
+        got = ops.decode_attention_bhsd(q, k, v, lengths, lse=lse)
+        plain = dec.decode_attention_lse_plain(q.reshape(B, Hkv, qpk, d), k.transpose(1, 2),
+                                               lengths).reshape(B, Hkv * qpk)
+        err, out_err = max_err(torch, lse, plain), max_err(torch, got, want)
+        worst = max(worst, err)
+        print(f"decode_attention lse B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt} "
+              f"lengths={lens}: lse max_abs_err={err:.3g}, output {out_err:.3g}")
+        check(err <= LSE_ATOL, f"decode_attention's lse disagrees with the plain one: {err}")
+        check(out_err <= TOL[dt], f"decode_attention with lse= disagrees: {out_err}")
+    B, Hkv, qpk, S, d = 8, 8, 6, 2048, 128
+    (q, k, v, lengths), _, _ = decode_case(torch, B, Hkv, qpk, S, d, "bfloat16", [S] * B,
+                                           seed=310)
+    lse = torch.empty((B, Hkv * qpk), dtype=torch.float32, device=DEVICE)
+    off = lambda: ops.decode_attention_bhsd(q, k, v, lengths)
+    on = lambda: ops.decode_attention_bhsd(q, k, v, lengths, lse=lse)
+    turns = [time_ms(torch, fn, 50) for fn in (off, on, on, off)]
+    q4, kt = q.reshape(B, Hkv, qpk, d), k.transpose(1, 2)
+    lse4 = lse.view(B, Hkv, qpk)
+    plain_ms = time_ms(torch, lambda: dec.decode_attention_plain(q4, kt, v.transpose(1, 2),
+                                                                 lengths, lse=lse4), 10)
+    nbytes = 2 * q.numel() * 2 + 2 * B * S * Hkv * d * 2 + B * 4 + lse.numel() * 4
+    rec = {"shape": f"B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} bfloat16, lengths={S}, with lse",
+           "max_abs_err": worst, "ms": (turns[1] + turns[2]) / 2, "plain_ms": plain_ms,
+           "library_ms": None, "library": "none: SDPA returns no row log-sum-exp",
+           "lse_cost": {"no_lse_ms": (turns[0] + turns[3]) / 2,
+                        "lse_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * S * Hkv * qpk * d, "bfloat16")
+    print(f"decode_attention lse at {rec['shape']}: off {rec['lse_cost']['no_lse_ms']:.4f} ms, "
+          f"on {rec['ms']:.4f} ms (turns {[f'{t:.4f}' for t in turns]})")
+    del q, k, v, lse
+    release(torch)
+    return rec
+
+
 def decode_case(torch, B, Hkv, qpk, S, d, dtype, lengths, seed):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
@@ -720,6 +796,7 @@ def check_kernels(torch) -> dict:
         print(f"decode_attention B={B} Hkv={Hkv} qpk={qpk} S={S} d={d} {dt} "
               f"lengths={lens} splits={dec.num_splits(B * Hkv)}: max_abs_err={err:.3g}")
         check(err <= TOL[dt], f"decode_attention disagrees with its plain version: {err}")
+    decode_lse = check_decode_lse(torch)
     # the int8 variant: internlm2-20b's shape with ragged lengths, whisper's,
     # d 80 and 32, the largest group (qpk 16) and each cluster size
     q8_cases = [(8, 8, 6, 2048, 128, dt, full_lengths) for dt in ("bfloat16", "float32")] + [
@@ -824,7 +901,7 @@ def check_kernels(torch) -> dict:
             check(ok_y and ok_h, f"mamba2_ssd disagrees with its plain version: y {err_y}, "
                                  f"h {err_h}")
 
-    records = {}
+    records = {"decode_attention_lse": decode_lse}
     # decode at the serving shapes, whole cache valid (the 2048-position
     # bound): internlm2-20b, olmoe-1b-7b, and zamba2-2.7b's shared block at d = 80
     for key, (B, Hkv, qpk, S, d) in (("decode_attention", (8, 8, 6, 2048, 128)),
@@ -3577,6 +3654,373 @@ def process_fabrics_fresh(torch) -> dict:
     return out
 
 
+# -- phase 9: sharding and launch: the models through a DeviceMesh ------------
+
+# 9a: phase 8's internlm2-20b cell through a Trainer on a 1 x 1 mesh, its
+# first SHARDED_STEPS losses held to the unsharded trainer's (phase 8's
+# run, the same seed and data) within SHARDED_LOSS_RTOL relative
+SHARDED_STEPS = 6
+SHARDED_LOSS_RTOL = 1e-5
+# 9b, 9c: (arch, layers or None for all, batch, prompt, decode steps)
+SHARDED_DECODE = (("internlm2-20b", None, 2, 1024, 16), ("olmoe-1b-7b", None, 2, 512, 8))
+# sharded logits against the unsharded model's: max |a - b| / max |b|
+SHARDED_LOGIT_RTOL = 1e-3
+# 9d: a step measured faster than this share of its roofline bound means
+# the count is wrong
+ROOFLINE_FLOOR = 0.95
+# 9e: the production-mesh dry-runs in a fresh interpreter (fake process
+# group): (arch, cell); llama3-405b's train_4k only if internlm2-20b's took
+# less than DRYRUN_MORE_BELOW_S
+DRYRUNS = (("internlm2-20b", "train_4k"), ("internlm2-20b", "decode_32k"))
+DRYRUN_MORE = ("llama3-405b", "train_4k")
+DRYRUN_MORE_BELOW_S = 120.0
+
+
+def one_card_mesh(torch):
+    """The 1 x 1 ("data", "model") mesh on the card, over a one-rank NCCL
+    group of an in-memory store."""
+    from repro_torch.launch.mesh import make_mesh, single_rank_world
+
+    single_rank_world()
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def leaves_are_dtensors(tree) -> bool:
+    from repro_torch.core.dtensor import is_dtensor
+    from repro_torch.optim.adamw import tree_leaves
+
+    return all(is_dtensor(t) for t in tree_leaves(tree))
+
+
+def sharded_train(torch, mesh, unsharded: dict) -> dict:
+    """Phase 9a: internlm2-20b at phase 8's cell (2 layers, full width, B 4
+    x S 2048, float32 params, bf16 compute, full remat) trained
+    SHARDED_STEPS steps through ``Trainer(sharder=)`` on the 1 x 1 mesh:
+    every param and moment a DTensor, the losses phase 8's within
+    SHARDED_LOSS_RTOL, exact flash launches, step times beside phase 8's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.plans import plan_for
+    from repro_torch.models.config import shape_cell
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import Trainer
+
+    arch = "internlm2-20b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=unsharded["layers"])
+    sharder = Sharder(mesh, plan_for(arch, shape_cell("train_4k")))
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, adamw.AdamWConfig(**TRAIN_OPT), global_batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, sharder=sharder, device=DEVICE)
+    tr.init(0)
+    check(leaves_are_dtensors(tr.params) and leaves_are_dtensors(
+        {"mu": tr.opt_state["mu"], "nu": tr.opt_state["nu"]}),
+        "9a: a param or moment of the sharded trainer is no DTensor")
+    times, step_fn = [], tr.step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    tr.step_fn = timed_step
+    zero_counts()
+    tr.run_steps(SHARDED_STEPS)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.metrics_history]
+    want_losses = unsharded["losses"][:SHARDED_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    want, rule = train_launches(cfg, SHARDED_STEPS)
+    ms = sorted(1e3 * t for t in times)
+    out = {"arch": arch, "layers": cfg.num_layers, "mesh": "1x1 (data, model)",
+           "plan": dataclasses.asdict(sharder.plan), "steps": SHARDED_STEPS,
+           "losses": losses, "unsharded_losses": want_losses, "loss_rel_gap": rel,
+           "step_ms_p50": ms[len(ms) // 2], "step_ms_all": ms,
+           "unsharded_step_ms_p50": unsharded["step_ms_p50"],
+           "max_memory_allocated_gb": peak / 1e9,
+           "unsharded_max_memory_allocated_gb": unsharded["max_memory_allocated_gb"],
+           "launches": counts}
+    print(f"9a sharded train {arch} ({cfg.num_layers} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+          f"1 x 1 mesh): losses {[round(x, 6) for x in losses]} against unsharded "
+          f"{[round(x, 6) for x in want_losses]} (max rel gap {rel:.3g}); step p50 "
+          f"{out['step_ms_p50']:.1f} ms (unsharded {unsharded['step_ms_p50']:.1f}); peak "
+          f"{out['max_memory_allocated_gb']:.1f} GB; launches {counts}, expected {want} ({rule})")
+    check(rel <= SHARDED_LOSS_RTOL, f"9a: sharded losses off the unsharded ones by {rel:.3g}")
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"9a: {name} launched {n} times, not {want.get(name, 0)}")
+    return out
+
+
+def sharded_decode(torch, mesh, arch, layers, B, prompt, steps) -> dict:
+    """Phases 9b, 9c: ``arch`` in bf16 per ``tuned_config(arch,
+    decode_32k)`` (``layers`` of them, None for all) under the serving plan
+    on the 1 x 1 mesh: one ``prompt``-token prefill and ``steps`` greedy
+    decode steps, sharded beside unsharded on the same params (the mesh
+    wraps them, no copy) and tokens; logits within SHARDED_LOGIT_RTOL,
+    greedy tokens identical, exact launches a step."""
+    from repro_torch.launch.plans import plan_for, tuned_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import shape_cell
+    from repro_torch.models.sharding import Sharder
+
+    cell = shape_cell("decode_32k")
+    cfg = tuned_config(arch, cell)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    m = build_model(cfg, device=DEVICE)
+    params = m.init(0)
+    sharder = Sharder(mesh, plan_for(arch, cell))
+    dparams = sharder.distribute(params, m.param_rules())
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g, device=DEVICE)
+    gap = lambda a, b: ((a.full_tensor() if hasattr(a, "full_tensor") else a).float()
+                        - b.float()).abs().max().item() / b.float().abs().max().item()
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "prompt": prompt,
+           "steps": steps, "param_dtype": cfg.param_dtype}
+    with torch.no_grad():
+        logits, cache = m.prefill(params, {"tokens": tok})
+        zero_counts()
+        slogits, _ = m.prefill(dparams, {"tokens": sharder.distribute(tok, ["batch", None])},
+                               sharder=sharder)
+        torch.cuda.synchronize()
+        out["prefill_launches"] = read_counts()
+        out["prefill_logit_gap"] = gap(slogits, logits)
+        big = m.init_cache(B, prompt + steps)
+        for name in big:
+            big[name][:, :, :prompt] = cache[name]
+        del cache, slogits
+        dcache = sharder.distribute({n: t.clone() for n, t in big.items()}, m.cache_rules())
+        out["cache_placements"] = [str(p) for p in dcache["k"].placements]
+        nxt = logits[:, -1:].argmax(-1)
+        gaps, same, t_u, t_s = [], True, [], []
+        per_step = []
+        for i in range(steps):
+            batch = {"tokens": nxt, "pos": torch.tensor(prompt + i, device=DEVICE)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, big = m.decode_step(params, big, batch)
+            torch.cuda.synchronize()
+            t_u.append(time.perf_counter() - t0)
+            sbatch = {"tokens": sharder.distribute(nxt, ["batch", None]), "pos": batch["pos"]}
+            zero_counts()
+            t0 = time.perf_counter()
+            slg, dcache = m.decode_step(dparams, dcache, sbatch, sharder=sharder)
+            torch.cuda.synchronize()
+            t_s.append(time.perf_counter() - t0)
+            per_step.append(read_counts())
+            gaps.append(gap(slg, lg))
+            same &= bool((slg.full_tensor().argmax(-1) == lg.argmax(-1)).all())
+            nxt = lg.argmax(-1)
+    out.update(logit_gap=max(gaps + [out["prefill_logit_gap"]]), tokens_identical=same,
+               step_launches=per_step[-1],
+               decode_step_ms_p50=sorted(1e3 * t for t in t_s)[steps // 2],
+               unsharded_decode_step_ms_p50=sorted(1e3 * t for t in t_u)[steps // 2])
+    L = cfg.num_layers
+    want = ({"decode_attention": L} if cfg.moe is None else
+            {"decode_attention": L, "grouped_matmul": 3 * L})
+    print(f"9b/9c sharded decode {arch} ({L} layers, {cfg.param_dtype}, B {B}, prompt {prompt}, "
+          f"{steps} steps, cache {out['cache_placements']}): logit gap {out['logit_gap']:.3g}, "
+          f"tokens identical {same}; step p50 {out['decode_step_ms_p50']:.1f} ms (unsharded "
+          f"{out['unsharded_decode_step_ms_p50']:.1f}); launches a step {per_step[-1]}, "
+          f"prefill {out['prefill_launches']}")
+    check(out["logit_gap"] <= SHARDED_LOGIT_RTOL, f"{arch}: sharded logits off by "
+                                                  f"{out['logit_gap']:.3g}")
+    check(same, f"{arch}: sharded greedy tokens differ from the unsharded model's")
+    for counts in per_step:
+        for name, n in counts.items():
+            check(n == want.get(name, 0), f"{arch}: {name} launched {n} times a step, not "
+                                          f"{want.get(name, 0)}")
+    check(out["prefill_launches"]["flash_attention"] == L, f"{arch}: prefill flash launches")
+    out["launches"] = {k: out["prefill_launches"].get(k, 0) + sum(c.get(k, 0) for c in per_step)
+                       for k in set(out["prefill_launches"]) | set(per_step[-1])}
+    del params, dparams, big, dcache
+    return out
+
+
+ROOFLINE_CHILD = """
+import json, sys, time
+sys.path.insert(0, {src!r})
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, plans
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.launch.op_analysis import analyze, matmul_flops
+from repro_torch.launch.roofline import analytic_memory_bytes, build_report, tree_shard_bytes
+from repro_torch.models.api import build_model
+from repro_torch.models.config import ShapeCell, shape_cell
+from repro_torch.models.counting import model_flops
+from repro_torch.models.sharding import Sharder
+
+fake_world(1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+out = {{}}
+for key, arch, layers, cell, plan_cell, dtype in {cases!r}:
+    t0 = time.perf_counter()
+    cell = ShapeCell(*cell)
+    base = (get_config(arch) if dtype == "published"
+            else plans.tuned_config(arch, shape_cell(plan_cell)))
+    cfg = dataclasses.replace(base, num_layers=layers or base.num_layers)
+    plan = plans.plan_for(arch, shape_cell(plan_cell))
+    sharder = Sharder(mesh, plan)
+    model = build_model(cfg, device="meta")
+    args, _ = dryrun.shardings_for(model, sharder, cell, "float32")
+    step = dryrun.step_for(model, sharder, cell, "float32")
+    _, cost = analyze(step, *args)
+    param_b = tree_shard_bytes(args[0])
+    opt_b = tree_shard_bytes(args[1]) if cell.kind == "train" else 0
+    cache_b = tree_shard_bytes(args[1]) if cell.kind == "decode" else 0
+    analytic = analytic_memory_bytes(cfg, cell, mesh, plan, param_bytes=param_b,
+                                     opt_bytes=opt_b, cache_bytes=cache_b)
+    r = build_report(arch, cell.name, "1x1", 1, cost, model_flops(cfg, cell), {{}},
+                     analytic_bytes=analytic)
+    out[key] = dict(r.to_dict(), matmul_flops=matmul_flops(cost), seconds=time.perf_counter() - t0,
+                    loops=cost.loops, summary=r.summary())
+print(json.dumps(out))
+"""
+
+
+def start_child(args):
+    """A fresh interpreter (its own process group: the dry-runs' fake
+    ones), started now and read by :func:`finish_child`; host work only, it
+    runs beside the card phases."""
+    import atexit
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+    atexit.register(proc.kill)   # a phase that fails before reading it leaves none behind
+    return proc, args, time.perf_counter()
+
+
+def finish_child(child, timeout: float) -> tuple[str, float]:
+    """The child's stdout and its seconds from start to exit."""
+    proc, args, t0 = child
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"{args[:4]} failed with exit code {proc.returncode}: "
+                                f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    return stdout, time.perf_counter() - t0
+
+
+def roofline_cases(train_layers: int) -> list:
+    """(key, arch, layers, cell, plan cell, numerics) of 9d: 9a's train step
+    (the published numerics) and 9b's decode step (``tuned_config``)."""
+    arch, layers, B, prompt, steps = SHARDED_DECODE[0]
+    return [("train_9a", "internlm2-20b", train_layers,
+             ("train_9a", "train", TRAIN_SEQ, TRAIN_BATCH), "train_4k", "published"),
+            ("decode_9b", arch, layers, ("decode_9b", "decode", prompt + steps, B),
+             "decode_32k", "tuned")]
+
+
+def roofline_vs_measured(child, train9a: dict, decode9b: dict, card: str) -> dict:
+    """Phase 9d: the H100 roofline of 9a's train step and 9b's decode step,
+    counted by ``op_analysis`` on ``meta`` over a 1 x 1 mesh (``child``: a
+    fresh interpreter with a one-rank fake group, running ROOFLINE_CHILD),
+    beside the measured medians: a step measured below ROOFLINE_FLOOR of its
+    bound means a wrong count."""
+    stdout, seconds = finish_child(child, 600)
+    reps = json.loads(stdout.strip().splitlines()[-1])
+    out = {"card": card, "seconds": seconds}
+    for key, measured in (("train_9a", train9a["step_ms_p50"]),
+                          ("decode_9b", decode9b["decode_step_ms_p50"])):
+        r = reps[key]
+        bound_ms = 1e3 * r["t_bound"]
+        out[key] = {"bound_ms": bound_ms, "bound_by": r["bottleneck"],
+                    "t_compute_ms": 1e3 * r["t_compute"], "t_memory_ms": 1e3 * r["t_memory"],
+                    "t_collective_ms": 1e3 * r["t_collective"], "measured_ms": measured,
+                    "measured_over_bound": measured / bound_ms,
+                    "counted_flops": r["flops_per_chip"], "matmul_flops": r["matmul_flops"],
+                    "model_flops": r["model_flops"], "hbm_bytes": r["hbm_bytes_per_chip"],
+                    "hbm_bytes_op_ub": r["hbm_bytes_op_ub"], "loops": r["loops"],
+                    "analysis_s": r["seconds"]}
+        print(f"9d roofline {key}: {r['summary']}; bound {bound_ms:.3f} ms ({r['bottleneck']}) "
+              f"against measured {measured:.3f} ms = {measured / bound_ms:.2f}x; counted flops "
+              f"{r['flops_per_chip']:.4g} (matmuls {r['matmul_flops']:.4g}) beside model_flops "
+              f"{r['model_flops']:.4g}; {card}")
+        check(measured >= ROOFLINE_FLOOR * bound_ms,
+              f"9d: {key} measured {measured:.3f} ms below {ROOFLINE_FLOOR} x its bound "
+              f"{bound_ms:.3f} ms: the count is wrong")
+    return out
+
+
+def start_dryruns() -> dict:
+    """Phase 9e (host only), started: ``python -m repro_torch.launch.dryrun``
+    of DRYRUNS and DRYRUN_MORE on pod16x16, each in a fresh interpreter (a
+    fake 256-rank group), all at once beside the card phases."""
+    return {(arch, cell): start_child(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                                       "--cell", cell, "--json"])
+            for arch, cell in (*DRYRUNS, DRYRUN_MORE)}
+
+
+def production_dryruns(children: dict) -> dict:
+    """Phase 9e's reports: per-GPU bytes against 80 GB, the bound, the
+    seconds; DRYRUN_MORE's kept when internlm2-20b's train cell took under
+    DRYRUN_MORE_BELOW_S."""
+    out = {}
+    for (arch, cell), child in children.items():
+        stdout, wall = finish_child(child, 900)
+        rep = json.loads(stdout.strip().splitlines()[-1])["dryrun"][0]
+        mem = rep["memory_stats"]
+        seconds = mem["seconds"]   # the cell's own time (the child ran beside other work)
+        if (arch, cell) == DRYRUN_MORE and out.get("internlm2-20b train_4k", {}).get(
+                "seconds", DRYRUN_MORE_BELOW_S) >= DRYRUN_MORE_BELOW_S:
+            continue
+        out[f"{arch} {cell}"] = {
+            "per_gpu_bytes": mem["per_gpu_bytes"], "argument_bytes": mem["argument_bytes"],
+            "temp_bytes": mem["temp_bytes"], "fits_80GB": mem["per_gpu_bytes"] <= 80e9,
+            "bound_ms": 1e3 * rep["t_bound"], "bound_by": rep["bottleneck"],
+            "t_compute_ms": 1e3 * rep["t_compute"], "t_memory_ms": 1e3 * rep["t_memory"],
+            "t_collective_ms": 1e3 * rep["t_collective"], "flops_per_gpu": rep["flops_per_chip"],
+            "collective_bytes_per_gpu": rep["collective_bytes_per_chip"],
+            "collective_by_op": rep["collective_by_op"], "useful_ratio": rep["useful_ratio"],
+            "roofline_fraction": rep["roofline_fraction"], "seconds": seconds,
+            "child_wall_s": wall}
+        print(f"9e dryrun {arch} {cell} pod16x16: per GPU {mem['per_gpu_bytes'] / 1e9:.2f} GB "
+              f"of 80 GB (args {mem['argument_bytes'] / 1e9:.2f}, temp "
+              f"{mem['temp_bytes'] / 1e9:.2f}), bound {1e3 * rep['t_bound']:.1f} ms "
+              f"({rep['bottleneck']}), {seconds:.1f} s")
+    return out
+
+
+def start_host_children(train_layers: int) -> dict:
+    """Phase 9d's and 9e's host-only children, started ahead (main starts
+    them before phase 8's trainings: llama3-405b's dry-run takes a minute
+    or more of one core, hidden under the card phases)."""
+    return {"roofline": start_child(["-c", ROOFLINE_CHILD.format(
+                src=str(ROOT / "src"), cases=roofline_cases(train_layers))]),
+            "dryruns": start_dryruns()}
+
+
+def sharding_phase(torch, train8: dict, card: str, children: dict) -> dict:
+    """Phase 9: 9a-9c on the card through a 1 x 1 mesh, 9d the roofline of
+    9a's and 9b's steps, 9e the production-mesh dry-runs (``children``:
+    :func:`start_host_children`)."""
+    t0 = time.perf_counter()
+    mesh = one_card_mesh(torch)
+    out = {"card": card}
+    out["train"] = sharded_train(torch, mesh, train8)
+    release(torch)
+    print(f"phase 9a took {time.perf_counter() - t0:.1f} s")
+    out["decode"] = {}
+    for arch, layers, B, prompt, steps in SHARDED_DECODE:
+        t1 = time.perf_counter()
+        out["decode"][arch] = sharded_decode(torch, mesh, arch, layers, B, prompt, steps)
+        release(torch)
+        print(f"phase 9 decode {arch} took {time.perf_counter() - t1:.1f} s")
+    out["card_s"] = time.perf_counter() - t0
+    out["roofline"] = roofline_vs_measured(children["roofline"], out["train"],
+                                           out["decode"]["internlm2-20b"], card)
+    out["dryrun"] = production_dryruns(children["dryruns"])
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3665,6 +4109,9 @@ def main() -> int:
         train[f"card_vs_cpu {arch}"] = card_vs_cpu(torch, arch, steps, layers)
         release(torch)
     print(f"phase 8b/8c card vs CPU took {time.perf_counter() - t0:.1f} s")
+    # phase 9's host-only children run beside the trainings (after 8b,
+    # whose CPU side takes every core)
+    children = start_host_children(dict((a, n) for a, n, _ in TRAINED)["internlm2-20b"])
     for arch, layers, steps in TRAINED:
         t0 = time.perf_counter()
         train[arch] = train_full(torch, arch, layers, steps)
@@ -3676,10 +4123,14 @@ def main() -> int:
     print(f"phase 8d (checkpoint restart) took {time.perf_counter() - t0:.1f} s")
     train["phase_s"] = time.perf_counter() - t8
     print(f"phase 8 took {train['phase_s']:.1f} s")
+    sharded = sharding_phase(torch, train["internlm2-20b"], smi[0], children)
+    release(torch)
+    print(f"phase 9 took {sharded['phase_s']:.1f} s (on the card {sharded['card_s']:.1f} s)")
     runs = [s["launches"] for s in (*served.values(), *full.values())] + [
         cluster[m]["launches"]
         for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")] + [
-        train[arch]["launches"] for arch, _, _ in TRAINED]
+        train[arch]["launches"] for arch, _, _ in TRAINED] + [
+        sharded["train"]["launches"], *(d["launches"] for d in sharded["decode"].values())]
 
     extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
              "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled",
@@ -3715,6 +4166,7 @@ def main() -> int:
     print(json.dumps({"cluster_serve": cluster}))
     print(json.dumps({"process_fabrics": fabrics}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,8 +12,11 @@ over sorted dict keys (``['params']/['embed']/['table']``), so a checkpoint
 written by either package restores in the other.  Tensors go to the host
 at ``save`` (bfloat16 leaves as float32: numpy has no bfloat16; restore
 casts back exactly); ``restore`` returns tensors on the template's device
-and dtype.  The manifest records the HAM key-map digest; saves are
-double-buffered onto a background thread; restores are exact.
+and dtype.  A DTensor leaf (a trainer on a mesh) is gathered whole
+(``full_tensor()``) and written as the unsharded leaf would be; restored
+into a DTensor template, each rank keeps its shard of the whole leaf.
+The manifest records the HAM key-map digest; saves are double-buffered
+onto a background thread; restores are exact.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.core.dtensor import is_dtensor
 
 
 def _flatten_with_paths(tree, prefix=()):
@@ -61,6 +66,8 @@ def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf``: never a view, since the optimizer updates
     params and moments in place while an async save is still writing."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         dtype = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
         return leaf.detach().to(device="cpu", dtype=dtype, copy=True).numpy()
     return np.array(leaf, copy=True)
@@ -159,7 +166,13 @@ class CheckpointStore:
                     f"leaf {p!r}: checkpoint shape {arr.shape} != template "
                     f"{tuple(leaf.shape)} (elastic reshard not yet applied)"
                 )
-            if isinstance(leaf, torch.Tensor):
+            if is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+
+                full = torch.from_numpy(arr).to(device=leaf.to_local().device, dtype=leaf.dtype)
+                arr = distribute_tensor(full, leaf.device_mesh, leaf.placements,
+                                        src_data_rank=None)
+            elif isinstance(leaf, torch.Tensor):
                 arr = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
             out.append(arr)
         return _unflatten(template, out)

@@ -16,7 +16,10 @@ the dispatch returned by :meth:`DeviceHandlerTable.build` compares the first
 result of every branch with the spec the table recorded, and
 :meth:`DeviceHandlerTable.validate` runs every branch once on a payload the
 caller supplies (for branches that are pure tensor code, ``meta`` tensors
-cost no device memory).
+cost no device memory).  :meth:`DeviceHandlerTable.lower` stands where the
+reference lowers the switch without running it: every branch runs once on
+``meta`` tensors under ``launch.op_analysis`` (the kernels' plain versions,
+nothing allocated), giving the result spec and each branch's cost.
 """
 
 from __future__ import annotations
@@ -131,3 +134,55 @@ class DeviceHandlerTable:
             return out
 
         return dispatch
+
+    def lower(self, payload_spec: Any, key_spec=None) -> LoweredTable:
+        """Validate ``payload_spec`` (a tree of tensors or ``(shape, dtype)``
+        pairs) against every branch on ``meta`` tensors and count each branch's
+        cost; nothing executes on a device.  ``key_spec``, if given, must be a
+        scalar int32 spec (the reference's default)."""
+        from repro_torch.launch.op_analysis import analyze
+
+        if key_spec is not None:
+            key = _as_meta(key_spec)
+            if tuple(key.shape) != () or key.dtype != torch.int32:
+                raise RegistryError(f"device key spec must be a scalar int32, got {key_spec!r}")
+        costs = {}
+        for h in self.handlers:
+            out, cost = analyze(h.fn, _as_meta(payload_spec))
+            self._check(h, out)
+            costs[h.stable_name] = cost
+        worst = max(costs.values(), key=lambda c: c.flops)
+        return LoweredTable(self._result_spec[1:], costs, worst)
+
+
+@dataclasses.dataclass
+class LoweredTable:
+    """What :meth:`DeviceHandlerTable.lower` returns: the branches' common
+    result spec (structure, leaf specs), each branch's ``OpCost`` by name,
+    and ``cost``, the costliest branch's (a switch runs one branch)."""
+
+    result_spec: Any
+    branch_costs: dict
+    cost: Any
+
+
+def _as_meta(tree: Any) -> Any:
+    """A payload spec as ``meta`` tensors: tensors keep their shape and dtype,
+    ``(shape, dtype)`` pairs become tensors of them."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        return x
+
+    def walk(x):
+        if (isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+                and isinstance(x[0], (tuple, list, torch.Size))):
+            return torch.empty(tuple(x[0]), dtype=x[1], device="meta")
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(walk(v) for v in x)
+        return leaf(x)
+
+    return walk(tree)
+

@@ -14,6 +14,8 @@ raises with the compiler's output; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -185,6 +187,29 @@ def check_aux(name: str, like, tensors, dtype, what: str) -> None:
         if t.device != like.device or t.dtype != dtype:
             raise TypeError(f"{name} {what} must be {dtype} on {like.device}, "
                             f"got {t.dtype} on {t.device}")
+
+
+#: True inside :func:`plain_on_meta`
+_META_PLAIN = contextvars.ContextVar("meta_plain", default=False)
+
+
+def takes_plain(t) -> bool:
+    """Whether a wrapper given ``t`` runs the plain version, not the kernel:
+    a CPU tensor does, and a ``meta`` one does inside :func:`plain_on_meta`.
+    Any other request, ``meta`` elsewhere included, goes to the kernel
+    path, which raises off the card."""
+    return t.device.type == "cpu" or (t.device.type == "meta" and _META_PLAIN.get())
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Inside the block, ``meta`` tensors take the plain versions: a dry-run
+    traces a step's shapes, as the reference's lowers its plain attention."""
+    token = _META_PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _META_PLAIN.reset(token)
 
 
 def grad_wanted(*tensors) -> bool:

@@ -126,7 +126,8 @@ decode_kernel(const T* __restrict__ q, const std::conditional_t<Q8, int8_t, T>* 
               int64_t q_sb, int64_t q_sh, int64_t q_sg,
               int64_t k_sb, int64_t k_sh, int64_t k_ss,
               int64_t v_sb, int64_t v_sh, int64_t v_ss,
-              int64_t o_sb, int64_t o_sh, int64_t o_sg, float scale_log2, Scales sc) {
+              int64_t o_sb, int64_t o_sh, int64_t o_sg, float scale_log2, Scales sc,
+              float* __restrict__ lse) {
   using KV = std::conditional_t<Q8, int8_t, T>;
   constexpr bool kBF16 = std::is_same_v<T, __nv_bfloat16>;
   constexpr int KT = tile_keys<T>();          // keys a stage
@@ -479,6 +480,10 @@ decode_kernel(const T* __restrict__ q, const std::conditional_t<Q8, int8_t, T>* 
       }
       const float inv = 1.f / fmaxf(L, 1e-30f);
       for (int r = 0; r < splits; ++r) wgt[r * kMaxQpk + tid] *= inv;
+      // the row's log-sum-exp in natural log (scores are in log2 units):
+      // what the shards of a sequence-sharded cache are merged by
+      if (lse) lse[(static_cast<int64_t>(b) * gridDim.y + h) * qpk + tid] =
+          (M + log2f(L)) * 0.6931471805599453f;
     }
     __syncthreads();
     T* ob = out + b * o_sb + h * o_sh;
@@ -496,7 +501,7 @@ decode_kernel(const T* __restrict__ q, const std::conditional_t<Q8, int8_t, T>* 
 template <typename T, int D, bool Q8>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
            int B, int Hkv, int qpk, int S, int splits, const long long* st, const Scales& sc,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   using KV = std::conditional_t<Q8, int8_t, T>;
   auto kernel = decode_kernel<T, D, Q8>;
   constexpr size_t smem = smem_bytes<T, D, Q8>();
@@ -518,7 +523,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
                            static_cast<const KV*>(v), lengths, static_cast<T*>(out), qpk, S,
                            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
                            st[10], st[11],
-                           1.4426950408889634f / sqrtf(static_cast<float>(D)), sc);
+                           1.4426950408889634f / sqrtf(static_cast<float>(D)), sc, lse);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -526,23 +531,25 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
 template <typename T, bool Q8>
 int dispatch(int d, const void* q, const void* k, const void* v, const int* lengths, void* out,
              int B, int Hkv, int qpk, int S, int splits, const long long* st, const Scales& sc,
-             cudaStream_t stream) {
+             float* lse, cudaStream_t stream) {
+#define HAM_DECODE_CASE(D_) \
+  case D_:                 \
+    return launch<T, D_, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, lse, stream);
   switch (d) {
-    case 32: return launch<T, 32, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
-    case 64: return launch<T, 64, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
-    case 80: return launch<T, 80, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
-    case 128:
-      return launch<T, 128, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
-    case 192:
-      return launch<T, 192, Q8>(q, k, v, lengths, out, B, Hkv, qpk, S, splits, st, sc, stream);
+    HAM_DECODE_CASE(32)
+    HAM_DECODE_CASE(64)
+    HAM_DECODE_CASE(80)
+    HAM_DECODE_CASE(128)
+    HAM_DECODE_CASE(192)
     default: return kUnsupported;
   }
+#undef HAM_DECODE_CASE
 }
 
 template <bool Q8>
 int run(const void* q, const void* k, const void* v, const void* lengths, void* out, int B,
         int Hkv, int qpk, int S, int d, int dtype, int splits, const long long* st,
-        const Scales& sc, int device, void* stream) {
+        const Scales& sc, void* lse, int device, void* stream) {
   if (qpk < 1 || qpk > kMaxQpk) return kUnsupported;
   if (splits != 1 && splits != 2 && splits != 4 && splits != kMaxSplits) return kUnsupported;
   if (B == 0 || Hkv == 0) return 0;
@@ -550,12 +557,13 @@ int run(const void* q, const void* k, const void* v, const void* lengths, void* 
   if (err != cudaSuccess) return err;
   const int* len = static_cast<const int*>(lengths);
   auto s = static_cast<cudaStream_t>(stream);
+  auto ls = static_cast<float*>(lse);
   switch (dtype) {
     case kF32:
-      return dispatch<float, Q8>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, sc, s);
+      return dispatch<float, Q8>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, sc, ls, s);
     case kBF16:
       return dispatch<__nv_bfloat16, Q8>(d, q, k, v, len, out, B, Hkv, qpk, S, splits, st, sc,
-                                         s);
+                                         ls, s);
     default: return kUnsupported;
   }
 }
@@ -566,7 +574,8 @@ int run(const void* q, const void* k, const void* v, const void* lengths, void* 
 // q (B, Hkv, qpk, d), k/v (B, Hkv, S, d), out (B, Hkv, qpk, d): element
 // strides of the three outer dims (the last dim is contiguous); lengths (B,)
 // int32 on the device; splits in {1, 2, 4, 8} blocks (one cluster) per
-// (sequence, kv head).  Returns 0 or the launch error.
+// (sequence, kv head); lse null, or float32 (B, Hkv, qpk) contiguous for
+// each row's log-sum-exp.  Returns 0 or the launch error.
 extern "C" int ham_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths, void* out,
     int B, int Hkv, int qpk, int S, int d, int dtype, int splits,
@@ -574,11 +583,11 @@ extern "C" int ham_decode_attention(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_sg,
-    int device, void* stream) {
+    void* lse, int device, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_sg, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_sg};
   return ham::run<false>(q, k, v, lengths, out, B, Hkv, qpk, S, d, dtype, splits, st,
-                         ham::Scales{}, device, stream);
+                         ham::Scales{}, lse, device, stream);
 }
 
 // The int8 variant: k/v int8 (B, Hkv, S, d) as above; k_scale/v_scale
@@ -594,11 +603,11 @@ extern "C" int ham_decode_attention_q8(
     long long o_sb, long long o_sh, long long o_sg,
     long long ks_sb, long long ks_sh, long long ks_ss,
     long long vs_sb, long long vs_sh, long long vs_ss,
-    int device, void* stream) {
+    void* lse, int device, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_sg, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_sg};
   const ham::Scales sc{static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                        ks_sb, ks_sh, ks_ss, vs_sb, vs_sh, vs_ss};
   return ham::run<true>(q, k, v, lengths, out, B, Hkv, qpk, S, d, dtype, splits, st, sc,
-                        device, stream);
+                        lse, device, stream);
 }

@@ -41,20 +41,26 @@ memory to the compute dtype as the reference dequantizes,
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_attention_q8_ref, decode_attention_ref
+from repro_torch.kernels.ref import (
+    NEG_INF,
+    decode_attention_q8_ref,
+    decode_attention_ref,
+    dequantize_kv,
+)
 
 HEAD_DIMS = (32, 64, 80, 128, 192)
 MAX_Q_PER_KV = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ham_decode_attention":
-        [_P] * 5 + [_I] * 7 + [_L] * 12 + [_I, _P],
+        [_P] * 5 + [_I] * 7 + [_L] * 12 + [_P, _I, _P],
     "ham_decode_attention_q8":
-        [_P] * 7 + [_I] * 7 + [_L] * 18 + [_I, _P],
+        [_P] * 7 + [_I] * 7 + [_L] * 18 + [_P, _I, _P],
 }
 
 #: cluster sizes the kernel takes (portable: at most 8 blocks a cluster)
@@ -82,51 +88,68 @@ def num_splits(groups: int) -> int:
     return SPLITS[-1]
 
 
-def decode_attention_plain(q, k, v, lengths):
+def decode_attention_lse_plain(q, k, lengths):
+    """Each query row's log-sum-exp (natural log) of its scaled scores over
+    keys j < lengths[b]: float32 (B, Hkv, qpk), what the kernel writes with
+    ``lse=``."""
+    d, S = q.shape[-1], k.shape[2]
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) / math.sqrt(d)
+    valid = torch.arange(S, device=q.device) < lengths.reshape(-1, 1, 1, 1)
+    return torch.logsumexp(torch.where(valid, s, NEG_INF), dim=-1)
+
+
+def decode_attention_plain(q, k, v, lengths, lse=None):
     """The plain PyTorch version, same signature as :func:`decode_attention`."""
     B, Hkv, qpk, d = q.shape
     out = decode_attention_ref(
         q.reshape(B, Hkv * qpk, d), k, v, lengths, q_per_kv=qpk
     )
+    if lse is not None:
+        lse.copy_(decode_attention_lse_plain(q, k, lengths))
     return out.reshape(B, Hkv, qpk, d)
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, lse=None):
     """q: (B, Hkv, qpk, d); k/v: (B, Hkv, S, d), any strides with a unit
     last dim; lengths: (B,) int.  Key j of sequence b is attended iff
     ``j < lengths[b]``; a length >= S attends the whole cache, and lengths
-    must be >= 1.  Returns (B, Hkv, qpk, d).
+    must be >= 1.  Returns (B, Hkv, qpk, d).  ``lse``, a contiguous float32
+    (B, Hkv, qpk) tensor, receives each row's log-sum-exp (the statistics a
+    sequence-sharded cache merges its shards by); None writes nothing.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths)
+    if _build.takes_plain(q):
+        return decode_attention_plain(q, k, v, lengths, lse)
     _build.no_backward("decode_attention", "12d", q, k, v)
-    return _launch(q, k, v, lengths)
+    return _launch(q, k, v, lengths, lse=lse)
 
 
-def decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths):
+def decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths, lse=None):
     """The plain PyTorch version, same signature as :func:`decode_attention_q8`."""
     B, Hkv, qpk, d = q.shape
     out = decode_attention_q8_ref(
         q.reshape(B, Hkv * qpk, d), k, v, k_scale, v_scale, lengths, q_per_kv=qpk
     )
+    if lse is not None:
+        lse.copy_(decode_attention_lse_plain(q, dequantize_kv(k, k_scale, q.dtype), lengths))
     return out.reshape(B, Hkv, qpk, d)
 
 
-def decode_attention_q8(q, k, v, k_scale, v_scale, lengths):
+def decode_attention_q8(q, k, v, k_scale, v_scale, lengths, lse=None):
     """:func:`decode_attention` over an int8 cache: q (B, Hkv, qpk, d)
     float32 or bf16; k/v int8 (B, Hkv, S, d), any strides with a unit last
     dim; k_scale/v_scale float32 (B, Hkv, S, 1), any strides.  K and V are
     dequantized to q's dtype as the reference does, ``dtype(x) *
-    dtype(scale)``.  Returns (B, Hkv, qpk, d).
+    dtype(scale)``.  Returns (B, Hkv, qpk, d); ``lse`` as for
+    :func:`decode_attention`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    if q.device.type == "cpu":
-        return decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths)
+    if _build.takes_plain(q):
+        return decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths, lse)
     _build.no_backward("decode_attention_q8", "12d", q, k, v, k_scale, v_scale)
-    return _launch(q, k, v, lengths, scales=(k_scale, v_scale))
+    return _launch(q, k, v, lengths, scales=(k_scale, v_scale), lse=lse)
 
 
 def _check_shapes(q, k, v, lengths):
@@ -143,18 +166,27 @@ def _check_shapes(q, k, v, lengths):
                          f"and q_per_kv <= {MAX_Q_PER_KV}, got {d}, {qpk}")
 
 
+def _check_lse(q, lse):
+    if lse is not None and (lse.dtype != torch.float32 or lse.device != q.device
+                            or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+        raise ValueError(f"decode_attention lse must be contiguous float32 "
+                         f"{tuple(q.shape[:3])} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+
+
 @_build.counted
-def _launch(q, k, v, lengths, splits=None, scales=None):
+def _launch(q, k, v, lengths, splits=None, scales=None, lse=None):
     """Launch the kernel (the int8 variant when ``scales`` =
     ``(k_scale, v_scale)`` is given); ``splits`` (one of :data:`SPLITS`)
     overrides :func:`num_splits`, for timing the cluster sizes against each
-    other."""
+    other; ``lse`` receives the rows' log-sum-exp."""
     if scales is not None:
-        return _launch_q8(q, k, v, lengths, splits, *scales)
+        return _launch_q8(q, k, v, lengths, splits, *scales, lse=lse)
     B, Hkv, qpk, d = q.shape
     S = k.shape[2]
     dtype = _build.check_inputs("decode_attention", (q, k, v))
     _check_shapes(q, k, v, lengths)
+    _check_lse(q, lse)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lengths = lengths.to(torch.int32).contiguous()
     lib = _build.library("decode_attention", _SIGNATURES)
@@ -162,13 +194,14 @@ def _launch(q, k, v, lengths, splits=None, scales=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, Hkv, qpk, S, d, dtype, splits or num_splits(B * Hkv),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        None if lse is None else lse.data_ptr(),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention")
     return out
 
 
-def _launch_q8(q, k, v, lengths, splits, k_scale, v_scale):
+def _launch_q8(q, k, v, lengths, splits, k_scale, v_scale, lse=None):
     B, Hkv, qpk, d = q.shape
     S = k.shape[2]
     dtype = _build.check_inputs("decode_attention_q8", (q,))
@@ -178,6 +211,7 @@ def _launch_q8(q, k, v, lengths, splits, k_scale, v_scale):
         raise ValueError("decode_attention_q8 kernel needs int8 k/v with a unit last-dim "
                          "stride and 16-byte aligned rows")
     _check_shapes(q, k, v, lengths)
+    _check_lse(q, lse)
     if k_scale.shape != (B, Hkv, S, 1) or v_scale.shape != k_scale.shape:
         raise ValueError(f"decode_attention_q8 scales {tuple(k_scale.shape)} "
                          f"{tuple(v_scale.shape)}, want {(B, Hkv, S, 1)}")
@@ -190,6 +224,7 @@ def _launch_q8(q, k, v, lengths, splits, k_scale, v_scale):
         splits or num_splits(B * Hkv),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *k_scale.stride()[:3], *v_scale.stride()[:3],
+        None if lse is None else lse.data_ptr(),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention_q8")

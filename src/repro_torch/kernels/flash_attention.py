@@ -119,7 +119,7 @@ def flash_attention_heads_backward(q, k, v, o, dout, *, causal=True, window=None
     (which needs no ``lse``); CUDA tensors launch the backward kernel."""
     if not causal:
         window = None
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return flash_attention_heads_backward_plain(q, k, v, o, dout, causal=causal,
                                                     window=window)
     if lse is None:
@@ -161,7 +161,7 @@ def flash_attention_heads(q, k, v, *, causal=True, window=None):
         raise ValueError(f"flash_attention window must be >= 1, got {window}")
     if not causal:
         window = None   # the reference applies a window only to causal masks
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return flash_attention_heads_plain(q, k, v, causal=causal, window=window)
     if _build.grad_wanted(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)

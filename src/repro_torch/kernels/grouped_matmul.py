@@ -80,7 +80,7 @@ def grouped_matmul(x, w):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return grouped_matmul_plain(x, w)
     if _build.grad_wanted(x, w):
         return _GroupedMatmul.apply(x, w)

@@ -114,7 +114,7 @@ def ssd_chunked_backward(x, dt, A, Bm, Cm, D, dy, *, chunk=256):
     Cm, D) with no initial state, for the gradient ``dy`` of y; each in its
     input's dtype and shape.  CPU tensors take the plain version; CUDA
     tensors launch the backward kernel."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return ssd_chunked_backward_plain(x, dt, A, Bm, Cm, D, dy, chunk=chunk)
     return _launch_backward(x, dt, A, Bm, Cm, D, dy, chunk)
 
@@ -155,7 +155,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, state=None, *, chunk=256):
     ragged tail; under autograd they go through :class:`_SSD` (no
     ``state``).
     """
-    if x.device.type == "cpu":
+    if _build.takes_plain(x):
         return ssd_chunked_plain(x, dt, A, Bm, Cm, D, state, chunk=chunk)
     if _build.grad_wanted(x, dt, A, Bm, Cm, D, state):
         if state is not None:

@@ -105,7 +105,7 @@ def mlstm_chunked_heads_backward(q, k, v, i_pre, f_pre, dh, *, chunk):
     in its input's dtype, q/k/v's in the model's (B, S, H, d) layout and the
     gates' in (B, S, H) (returned as (B, H, S, ...) views).  CPU tensors
     take the plain version; CUDA tensors launch the backward kernel."""
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         return mlstm_chunked_heads_backward_plain(q, k, v, i_pre, f_pre, dh, chunk=chunk)
     return _launch_backward(q, k, v, i_pre, f_pre, dh, chunk)
 
@@ -166,7 +166,7 @@ def mlstm_chunked_heads(q, k, v, i_pre, f_pre, state=None, *, chunk, out=None):
     ragged tail; under autograd they go through :class:`_MLSTM` (no
     ``state``, no ``out``: writing into ``out`` would cut the graph).
     """
-    if q.device.type == "cpu":
+    if _build.takes_plain(q):
         h, st = mlstm_chunked_heads_plain(q, k, v, i_pre, f_pre, state, chunk=chunk)
         return (h if out is None else out.copy_(h)), st
     if _build.grad_wanted(q, k, v, i_pre, f_pre, *(state or ())):

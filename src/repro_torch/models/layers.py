@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.core.dtensor import flatten, is_dtensor, local_offset
 
 
 def _cast(x, dtype):
@@ -95,17 +96,24 @@ def apply_rope(x, positions, theta):
 # --------------------------------------------------------------------------
 
 
-def _project(p, x, name, dtype):
-    """x (b, t, d) @ p[w<name>] (d, heads, hd) (+ p[b<name>]) -> (b, t, heads, hd)."""
+def _project(p, x, name, dtype, sharder=None):
+    """x (b, t, d) @ p[w<name>] (d, heads, hd) (+ p[b<name>]) -> (b, t, heads, hd).
+    On a mesh the flat product first takes the heads layout's placements,
+    so that its split (if any) falls on whole heads."""
     b, t, d = x.shape
     w = p["w" + name]
-    y = (x @ _cast(w, dtype).reshape(d, -1)).view(b, t, *w.shape[1:])
+    y = x @ flatten(_cast(w, dtype), 1, -1)
+    if sharder is not None:
+        heads = sharder.placements((b, t, *w.shape[1:]), ["batch", None, "model", None])
+        if tuple(y.placements) != tuple(heads):
+            y = y.redistribute(y.device_mesh, heads)
+    y = y.view(b, t, *w.shape[1:])
     return y + _cast(p["b" + name], dtype) if "b" + name in p else y
 
 
-def _project_qkv(p, x, dtype, x_kv=None):
+def _project_qkv(p, x, dtype, x_kv=None, sharder=None):
     xkv = x if x_kv is None else x_kv
-    return _project(p, x, "q", dtype), _project(p, xkv, "k", dtype), _project(p, xkv, "v", dtype)
+    return tuple(_project(p, a, n, dtype, sharder) for a, n in ((x, "q"), (xkv, "k"), (xkv, "v")))
 
 
 def gqa_scores_softmax_value(q, k, v, mask, *, q_per_kv):
@@ -167,6 +175,8 @@ def _cache_write(caches, news, cache_pos, *, ring=False):
     depend on the order of the keys (RoPE is already in each key), so the
     ring needs only the wrapped write.
     """
+    if is_dtensor(caches[0]):
+        return _cache_write_sharded(caches, news, cache_pos, ring=ring)
     B, S = caches[0].shape[0], caches[0].shape[1]
     dev = caches[0].device
     pos = cache_pos.to(device=dev, dtype=torch.int64)
@@ -190,6 +200,36 @@ def _cache_write(caches, news, cache_pos, *, ring=False):
     return (pos + 1).clamp(max=S).to(torch.int32)
 
 
+def _cache_write_sharded(caches, news, cache_pos, *, ring=False):
+    """:func:`_cache_write` into DTensor caches (B, S, ...) split over batch,
+    heads or sequence: the new token (redistributed to line up with the
+    cache shard) is written by the rank that holds its global slot, at the
+    slot :func:`_cache_write` would pick.  Returns the global lengths (B,)
+    of the whole cache (the decode wrapper clips them to each shard)."""
+    B, S = caches[0].shape[0], caches[0].shape[1]
+    b0, s0, S_loc = ops.cache_extent(caches[0])
+    locs = [c.to_local() for c in caches]
+    dev = locs[0].device
+    pos = cache_pos.full_tensor() if is_dtensor(cache_pos) else cache_pos
+    pos = torch.as_tensor(pos, device=dev).to(torch.int64)
+    lengths = (pos + 1).clamp(max=S).expand(B).to(torch.int32)
+    if pos.ndim == 1:
+        pos = pos[b0:b0 + locs[0].shape[0]]
+        slot, keep = (pos % S, pos >= 0) if ring else (pos.clamp(max=S - 1), pos < S)
+    else:
+        slot = (pos % S if ring else pos.clamp(0, S - 1)).expand(locs[0].shape[0])
+        keep = torch.ones_like(slot, dtype=torch.bool)
+    local = slot - s0
+    keep = keep & (local >= 0) & (local < S_loc)
+    idx = local.clamp(0, S_loc - 1)
+    bidx = torch.arange(locs[0].shape[0], device=dev)
+    for c, n, full in zip(locs, news, caches):
+        n = ops.local_like_cache(n, full)
+        mask = keep.view(-1, *[1] * (c.ndim - 2))
+        c[bidx, idx] = torch.where(mask, n[:, 0], c[bidx, idx])
+    return lengths
+
+
 def attention_apply(
     p,
     x,
@@ -203,9 +243,13 @@ def attention_apply(
     cache_pos=None,
     x_kv=None,
     static_cache: bool = False,
+    sharder=None,
 ):
     """Full/causal/cross attention with an optional KV cache.  Head counts
     come from the weights: ``wq (d, H, hd)``, ``wk/wv (d, Hkv, hd)``.
+    With a ``sharder`` every tensor is a DTensor: q, k, v and the output
+    take the reference's ``["batch", None, "model", None]`` layout and the
+    kernels run on the local shards (:mod:`repro_torch.kernels.ops`).
 
     Modes, as the reference's:
     * prefill/full:  cache=None -> one flash-attention call over x (keys and
@@ -233,19 +277,24 @@ def attention_apply(
     b, t, d = x.shape
     if cache is not None and t != 1:
         raise NotImplementedError("decode takes one new token per sequence")
+    heads = ["batch", None, "model", None]
     if cache is not None and static_cache:
-        q = _project(p, x, "q", dtype)   # k and v of x are never read
+        q = _project(p, x, "q", dtype, sharder)   # k and v of x are never read
         if rope_theta is not None:
             q = apply_rope(q, positions, rope_theta)
+        if sharder is not None:
+            q = sharder.constrain(q, heads)
         lengths = torch.full((b,), cache["k"].shape[1], dtype=torch.int32, device=q.device)
         out = ops.decode_attention_bhsd(q, cache["k"], cache["v"], lengths)
         new_cache = cache
     else:
-        q, k, v = _project_qkv(p, x, dtype, x_kv=x_kv)
+        q, k, v = _project_qkv(p, x, dtype, x_kv=x_kv, sharder=sharder)
         if rope_theta is not None:
             q = apply_rope(q, positions, rope_theta)
             if x_kv is None:   # self-attention: keys share the query positions
                 k = apply_rope(k, positions, rope_theta)
+        if sharder is not None:
+            q, k, v = (sharder.constrain(t, heads) for t in (q, k, v))
         if cache is None:
             out = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
             new_cache = {"k": k, "v": v}
@@ -261,7 +310,11 @@ def attention_apply(
             out = ops.decode_attention_bhsd(q, cache["k"], cache["v"], lengths)
             new_cache = cache
 
-    y = out.reshape(b, t, -1) @ _cast(p["wo"], dtype).reshape(-1, d)
+    if sharder is not None:
+        out = sharder.constrain(out, heads)
+    y = flatten(out, 2, 3) @ flatten(_cast(p["wo"], dtype), 0, 1)
+    if sharder is not None:
+        y = sharder.act_btd(y)
     return y, new_cache
 
 
@@ -270,7 +323,7 @@ def attention_apply(
 # --------------------------------------------------------------------------
 
 
-def mlp_apply(p, x, kind, dtype):
+def mlp_apply(p, x, kind, dtype, sharder=None):
     if kind == "swiglu":
         h = F.silu(x @ _cast(p["w_gate"], dtype)) * (x @ _cast(p["w_up"], dtype))
     elif kind == "relu2":
@@ -279,7 +332,16 @@ def mlp_apply(p, x, kind, dtype):
         h = F.gelu(x @ _cast(p["w_up"], dtype), approximate="tanh")  # jax.nn.gelu default
     else:
         raise ValueError(kind)
-    return h @ _cast(p["w_down"], dtype)
+    if sharder is not None:
+        # the reference constrains h to ["batch", "seq", "model"]; under
+        # sequence parallelism "seq" would take the model axis and leave f
+        # whole.  The projections read whole sequences here (the stream is
+        # gathered before them, transformer._gathered), so h splits f
+        h = sharder.constrain(h, ["batch", None, "model"])
+    y = h @ _cast(p["w_down"], dtype)
+    if sharder is not None:
+        y = sharder.act_btd(y)
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -296,13 +358,74 @@ def unembed(p_head, x, dtype):
     return x @ _cast(p_head["w"], dtype)
 
 
+def _labels_like(placements, last):
+    """Placements for the labels (B, S) of logits placed ``placements``:
+    their batch/sequence splits, replicated where the vocab is split."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if q.is_shard(last) or q.is_partial() else q for q in placements]
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """The rows' log-sum-exp of local logits (B, S, V_local) whose vocab may
+    be split over ranks; ``reduce(t, op)`` reduces a (B, S) local tensor
+    across those ranks.  Forward and backward are ``torch.logsumexp``'s own
+    formulas (the max masked where infinite; the gradient
+    ``g * exp(x - lse)``), so a vocab held whole by one rank gives its
+    results bit for bit."""
+
+    @staticmethod
+    def forward(ctx, local, reduce):
+        top = reduce(local.amax(dim=-1), "max")
+        top = top.masked_fill(top.abs() == math.inf, 0.0)
+        lse = torch.log(reduce(torch.exp(local - top[..., None]).sum(dim=-1), "sum")) + top
+        ctx.save_for_backward(local, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        local, lse = ctx.saved_tensors
+        return (local - lse[..., None]).exp_().mul_(g[..., None]), None
+
+
+def _ce_terms_sharded(logits, labels):
+    """(logsumexp, logits at ``labels``) of DTensor logits (B, S, V) over
+    their last dim, on the local shards: the logits are never gathered,
+    forward or backward.  The row max and the sum of exponentials reduce
+    across the mesh dims that split the vocab ((B, S) all-reduces) and each
+    rank gathers the labels in its vocab range (a partial sum)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh, pl = logits.device_mesh, logits.placements
+    last = logits.ndim - 1
+    rows = _labels_like(pl, last)
+    local = logits.to_local()
+    labels = labels.redistribute(mesh, rows).to_local()
+
+    def reduce(t, op):
+        part = [Partial(op) if q.is_shard(last) else q for q in pl]
+        return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+            mesh, rows).to_local()
+
+    logz = DTensor.from_local(_VocabLogSumExp.apply(local, reduce), mesh, rows, run_check=False)
+    off = local_offset(logits)[last]
+    mine = (labels >= off) & (labels < off + local.shape[-1])
+    picked = torch.gather(local, -1, torch.where(mine, labels - off, 0)[..., None])[..., 0]
+    gold = DTensor.from_local(torch.where(mine, picked, 0.0), mesh,
+                              [Partial() if q.is_shard(last) else q for q in pl], run_check=False)
+    return logz, gold
+
+
 def cross_entropy(logits, labels, *, z_loss: float = 0.0):
     """Mean token cross-entropy in float32; labels -100 are ignored."""
     logits = logits.float()
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        logz, gold = _ce_terms_sharded(logits, safe)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     loss = (logz - gold) * valid
     if z_loss:
         loss = loss + z_loss * logz.square() * valid

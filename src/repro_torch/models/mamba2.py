@@ -29,7 +29,9 @@ Differences from the reference, all forced by PyTorch or chosen for memory:
   it: where an exponent above the diagonal overflows, its gradient is
   0 * inf = NaN, which a zamba2-2.7b chunk of 128 positions already reaches).
 
-The sharding hooks (``sharder``, ``mamba2_param_rules``) are not ported.
+Under a ``sharder`` the block's inner width splits over the model axis
+(the reference's constraints on ``z`` and the conv input), and the SSD's x,
+dt, B and C take the heads layout the kernel runs on locally.
 """
 
 from __future__ import annotations
@@ -173,7 +175,7 @@ def mamba2_block_init(cfg: ModelConfig, lead: tuple, *, device, generator: torch
     }
 
 
-def mamba2_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
+def mamba2_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False, sharder=None):
     """Returns (x + block(x), new_state); state = (h (B, H, N, P) float32,
     conv_state (B, w-1, conv_ch)).  In decode the h given is updated in
     place and returned."""
@@ -186,6 +188,9 @@ def mamba2_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
     proj = hin @ _cast(p["w_in"], dt_)
     z, dt_pre = proj[..., :di], proj[..., 2 * di + 2 * G * N:]
     conv_in = proj[..., di:2 * di + 2 * G * N]      # [x, B, C]
+    if sharder is not None:
+        z = sharder.constrain(z, ["batch", None, "model"])
+        conv_in = sharder.constrain(conv_in, ["batch", None, "model"])
 
     if decode:
         h0, conv_state = state
@@ -199,6 +204,10 @@ def mamba2_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
     Cc = conv_out[..., di + G * N:].unflatten(-1, (G, N))
     dt_v = F.softplus(dt_pre.float() + p["dt_bias"])               # (B,S,H) float32
     A = -torch.exp(p["A_log"])
+    if sharder is not None:
+        xc = sharder.constrain(xc, ["batch", None, "model", None])
+        dt_v = sharder.constrain(dt_v, ["batch", None, "model"])
+        Bc, Cc = (sharder.constrain(t, ["batch", None, None, None]) for t in (Bc, Cc))
 
     if decode:
         y, h_new = ssd_step(xc, dt_v, A, Bc, Cc, p["D"], h0)
@@ -208,9 +217,27 @@ def mamba2_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
 
     yflat = L.rmsnorm(p["out_norm"], y.reshape(B_, S, di), cfg.norm_eps) * F.silu(z)
     out = yflat @ _cast(p["w_out"], dt_)
+    if sharder is not None:
+        out = sharder.act_btd(out)
     if not decode:
         conv_state = _conv_tail(conv_in, s.conv_width)
     return x + out, (h_new, conv_state)
+
+
+def mamba2_param_rules(prefix_dims: int = 1):
+    """Rules for one (possibly stacked) mamba2 block; ``prefix_dims`` layer
+    dims lead each leaf."""
+    pre = [None] * prefix_dims
+    return {
+        "ln": {"scale": pre + [None]},
+        "w_in": pre + [["fsdp"], "model"],
+        "conv": {"w": pre + [None, "model"]},
+        "A_log": pre + [None],
+        "dt_bias": pre + [None],
+        "D": pre + [None],
+        "out_norm": {"scale": pre + [None]},
+        "w_out": pre + ["model", ["fsdp"]],
+    }
 
 
 def mamba2_state_init(cfg: ModelConfig, batch: int, *, device):

@@ -20,7 +20,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import expert_specs, moe_apply, moe_init
+from repro_torch.core.dtensor import is_dtensor, lead
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -29,7 +30,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked param (or cache) tree, as views."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    return {k: _layer(v, i) if isinstance(v, dict) else lead(v, i) for k, v in tree.items()}
 
 
 def remat(fn, cfg: ModelConfig, x):
@@ -44,25 +45,28 @@ def remat(fn, cfg: ModelConfig, x):
 
 
 def layer_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
-                cache_pos=None, causal=True, window=None):
+                cache_pos=None, causal=True, window=None, sharder=None):
     """Pre-norm block: x + attn(ln(x)); x + mlp(ln(x)), the MLP being the
     MoE layer when ``cfg.moe`` is set.  Returns (x, new_cache, aux), aux the
     MoE load-balance loss (0 without MoE)."""
     dt = torch_dtype(cfg.dtype)
-    h = L.rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+    h = _gathered(L.rmsnorm(p["ln_attn"], x, cfg.norm_eps), sharder)
     attn_out, new_cache = L.attention_apply(
         p["attn"], h, dtype=dt,
         rope_theta=cfg.rope_theta, positions=positions, causal=causal,
-        window=window, cache=cache, cache_pos=cache_pos,
+        window=window, cache=cache, cache_pos=cache_pos, sharder=sharder,
     )
     x = x + attn_out
-    h = L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    h = _gathered(L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), sharder)
     if cfg.moe is not None:
-        mlp_out, aux = moe_apply(p["moe"], h, cfg.moe, dt)
+        mlp_out, aux = moe_apply(p["moe"], h, cfg.moe, dt, sharder=sharder)
     else:
-        mlp_out = L.mlp_apply(p["mlp"], h, cfg.mlp, dt)
+        mlp_out = L.mlp_apply(p["mlp"], h, cfg.mlp, dt, sharder=sharder)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_out, new_cache, aux
+    x = x + mlp_out
+    if sharder is not None:
+        x = sharder.act_btd(x)
+    return x, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -162,22 +166,33 @@ def _stack(n: int, make):
     return out
 
 
-def _logits(p, x, cfg: ModelConfig, dt):
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+def _gathered(h, sharder):
+    """A normed residual stream (B, S, d) with its sequence whole, as the
+    projections read it: under sequence parallelism (``plan.seq_shard``)
+    the stream between blocks is split over the model axis, and the
+    projections gather it (the reference's GSPMD does the same); without
+    it this changes nothing."""
+    return sharder.constrain(h, ["batch", None, None]) if sharder is not None else h
+
+
+def _logits(p, x, cfg: ModelConfig, dt, sharder=None):
+    x = _gathered(L.rmsnorm(p["final_norm"], x, cfg.norm_eps), sharder)
     head = p["head"] if "head" in p else {"w": p["embed"]["table"].T}
-    return L.unembed(head, x, dt)
+    logits = L.unembed(head, x, dt)
+    return sharder.logits(logits) if sharder is not None else logits
 
 
-def _embed_inputs(p, batch, cfg: ModelConfig, dt):
+def _embed_inputs(p, batch, cfg: ModelConfig, dt, sharder=None):
     """tokens (+ patch_embeds for VLM) -> (B, S, d) embeddings."""
     x = L.embed(p["embed"], batch["tokens"], dt)
     if cfg.vlm is not None:
         patches = L.dense(p["patch_proj"], batch["patch_embeds"].to(dt), dt)
         x = torch.cat([patches, x], dim=1)   # vision prefix
-    return x
+    return sharder.act_btd(x) if sharder is not None else x
 
 
-def lm_forward(p, batch, cfg: ModelConfig, *, window=None, return_cache=False):
+def lm_forward(p, batch, cfg: ModelConfig, *, window=None, return_cache=False,
+               sharder=None):
     """Train/prefill forward: full-sequence causal attention (keys j > i -
     window too when ``window``), over the vision prefix and the tokens for
     a VLM.
@@ -188,27 +203,28 @@ def lm_forward(p, batch, cfg: ModelConfig, *, window=None, return_cache=False):
     under :func:`remat` when training asks for it.
     """
     dt = torch_dtype(cfg.dtype)
-    x = _embed_inputs(p, batch, cfg, dt)
+    x = _embed_inputs(p, batch, cfg, dt, sharder)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         x, cache, a = remat(layer_apply, cfg, x)(_layer(p["layers"], i), x, cfg,
-                                                 positions=positions, window=window)
+                                                 positions=positions, window=window,
+                                                 sharder=sharder)
         aux = aux + a
         if return_cache:
             caches.append(cache)
     stacked = None
     if return_cache:
         stacked = {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
-    return _logits(p, x, cfg, dt), stacked, aux / cfg.num_layers
+    return _logits(p, x, cfg, dt, sharder), stacked, aux / cfg.num_layers
 
 
-def lm_loss(p, batch, cfg: ModelConfig, *, aux_weight=0.01):
+def lm_loss(p, batch, cfg: ModelConfig, *, aux_weight=0.01, sharder=None):
     """Mean token cross-entropy plus ``aux_weight`` times the MoE aux loss;
     a VLM's vision prefix carries no labels (-100).  Returns (loss,
     {"ce", "aux"})."""
-    logits, _, aux = lm_forward(p, batch, cfg)
+    logits, _, aux = lm_forward(p, batch, cfg, sharder=sharder)
     labels = batch["labels"]
     if cfg.vlm is not None:
         pad = torch.full((labels.shape[0], cfg.vlm.num_patches), -100,
@@ -237,7 +253,20 @@ def lm_init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def lm_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
+def decode_positions(pos, device):
+    """A decode batch's ``pos`` (a scalar or (B,), a DTensor on a mesh) as a
+    plain tensor on ``device``."""
+    return torch.as_tensor(pos.full_tensor() if is_dtensor(pos) else pos, device=device)
+
+
+def query_positions(pos):
+    """(t=1,) positions of a synchronous step, (B, t=1) of a per-slot one."""
+    if pos.ndim == 0:
+        return pos.reshape(1).to(torch.int32)
+    return pos[:, None].to(torch.int32)
+
+
+def lm_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None, sharder=None):
     """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``;
     ``window`` for a ring cache (:func:`lm_init_cache` with the same
     window).
@@ -248,14 +277,90 @@ def lm_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
     """
     dt = torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
-    pos = torch.as_tensor(batch["pos"], device=x.device)
-    if pos.ndim == 0:
-        positions = pos.reshape(1).to(torch.int32)      # (t=1,) synchronous
-    else:
-        positions = pos[:, None].to(torch.int32)        # (B, t=1) per-slot
+    if sharder is not None:
+        x = sharder.act_btd(x)
+    pos = decode_positions(batch["pos"], x.device)
+    positions = query_positions(pos)
     for i in range(cfg.num_layers):
         x, _, _ = layer_apply(
             _layer(p["layers"], i), x, cfg, positions=positions,
-            cache=_layer(cache, i), cache_pos=pos, window=window,
+            cache=_layer(cache, i), cache_pos=pos, window=window, sharder=sharder,
         )
-    return _logits(p, x, cfg, dt), cache
+    return _logits(p, x, cfg, dt, sharder), cache
+
+
+# --------------------------------------------------------------------------
+# sharding rules for the param tree (mirrors lm_init's structure)
+# --------------------------------------------------------------------------
+
+
+def lm_param_rules(cfg: ModelConfig):
+    """Rules tree (same structure as params) for ``Sharder.spec``.
+
+    Leading dim of every stacked layer leaf is the layer dim (never
+    sharded); weights shard output-column over "model" and, under FSDP,
+    input-row over the data axes.
+    """
+    attn = {
+        "wq": [None, ["fsdp"], "model", None],
+        "wk": [None, ["fsdp"], "model", None],
+        "wv": [None, ["fsdp"], "model", None],
+        "wo": [None, "model", None, ["fsdp"]],
+    }
+    if cfg.qkv_bias:
+        attn.update({
+            "bq": [None, "model", None],
+            "bk": [None, "model", None],
+            "bv": [None, "model", None],
+        })
+    layer = {
+        "ln_attn": {"scale": [None, None]},
+        "ln_mlp": {"scale": [None, None]},
+        "attn": attn,
+    }
+    if cfg.moe is not None:
+        moe_rules = {k: [None] + v for k, v in expert_specs(None, cfg.moe).items()}
+        if cfg.moe.num_shared_experts:
+            moe_rules["shared"] = {
+                "w_gate": [None, ["fsdp"], "model"],
+                "w_up": [None, ["fsdp"], "model"],
+                "w_down": [None, "model", ["fsdp"]],
+                "gate": [None, None, None],
+            }
+        layer["moe"] = moe_rules
+    else:
+        mlp = {
+            "w_up": [None, ["fsdp"], "model"],
+            "w_down": [None, "model", ["fsdp"]],
+        }
+        if cfg.mlp == "swiglu":
+            mlp["w_gate"] = [None, ["fsdp"], "model"]
+        layer["mlp"] = mlp
+    rules = {
+        "embed": {"table": [["fsdp"], "model"]},
+        "layers": layer,
+        "final_norm": {"scale": [None]},
+    }
+    if not cfg.tie_embeddings:
+        rules["head"] = {"w": [["fsdp"], "model"]}
+    if cfg.vlm is not None:
+        rules["patch_proj"] = {"w": [["fsdp"], "model"]}
+    return rules
+
+
+def lm_cache_rules(cfg: ModelConfig | None = None, model_axis_size: int = 16):
+    """KV-cache sharding: heads over the model axis when they divide it
+    (zamba 32, olmoe/qwen2moe 16); otherwise the cache *sequence* dim is
+    sharded (flash-decode-style: each shard attends its positions and the
+    shards' softmax states merge by their rows' log-sum-exp,
+    ``kernels.ops``).  kv=8/20 archs take the seq path."""
+    if cfg is not None and cfg.num_kv_heads % model_axis_size == 0:
+        rule = [None, "batch", None, "model", None]
+    else:
+        rule = [None, "batch", "model", None, None]
+    rules = {"k": list(rule), "v": list(rule)}
+    if cfg is not None and cfg.kv_quant:
+        srule = rule[:-1] + [None]
+        rules["k_scale"] = list(srule)
+        rules["v_scale"] = list(srule)
+    return rules

@@ -75,67 +75,72 @@ def whisper_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     }
 
 
-def encode(p, frames, cfg: ModelConfig):
+def encode(p, frames, cfg: ModelConfig, *, sharder=None):
     """Frame embeddings (B, F, d) -> encoder output (B, F, d)."""
     dt = T.torch_dtype(cfg.dtype)
     F = frames.shape[1]
     x = frames.to(dt) + sinusoids(F, cfg.d_model).to(frames.device, dt)[None]
+    if sharder is not None:
+        x = sharder.act_btd(x)
     positions = torch.arange(F, dtype=torch.int32, device=x.device)
     for i in range(cfg.encdec.encoder_layers):
         lp = T._layer(p["enc_layers"], i)
         h = L.layernorm(lp["ln_attn"], x, cfg.norm_eps)
         a, _ = L.attention_apply(lp["attn"], h, dtype=dt, rope_theta=None,
-                                 positions=positions, causal=False)
+                                 positions=positions, causal=False, sharder=sharder)
         x = x + a
         h = L.layernorm(lp["ln_mlp"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h, "gelu", dt)
+        x = x + L.mlp_apply(lp["mlp"], h, "gelu", dt, sharder=sharder)
     return L.layernorm(p["enc_norm"], x, cfg.norm_eps)
 
 
 def _dec_layer(lp, x, enc_out, cfg: ModelConfig, *, positions, dt, self_cache=None,
-               cache_pos=None, cross_cache=None):
+               cache_pos=None, cross_cache=None, sharder=None):
     """One decoder block.  Prefill (``cross_cache`` None) attends the
     encoder output ``enc_out``; decode reads ``cross_cache``.  Returns (x,
     (self cache, cross cache))."""
     h = L.layernorm(lp["ln_self"], x, cfg.norm_eps)
     a, new_self = L.attention_apply(
         lp["self_attn"], h, dtype=dt, rope_theta=cfg.rope_theta, positions=positions,
-        causal=True, cache=self_cache, cache_pos=cache_pos,
+        causal=True, cache=self_cache, cache_pos=cache_pos, sharder=sharder,
     )
     x = x + a
     h = L.layernorm(lp["ln_cross"], x, cfg.norm_eps)
     if cross_cache is not None:
         a, new_cross = L.attention_apply(
             lp["cross_attn"], h, dtype=dt, rope_theta=None, positions=positions,
-            cache=cross_cache, static_cache=True,
+            cache=cross_cache, static_cache=True, sharder=sharder,
         )
     else:
         enc_positions = torch.arange(enc_out.shape[1], dtype=torch.int32, device=x.device)
         a, new_cross = L.attention_apply(
             lp["cross_attn"], h, dtype=dt, rope_theta=None, positions=enc_positions,
-            causal=False, x_kv=enc_out,
+            causal=False, x_kv=enc_out, sharder=sharder,
         )
     x = x + a
     h = L.layernorm(lp["ln_mlp"], x, cfg.norm_eps)
-    return x + L.mlp_apply(lp["mlp"], h, "gelu", dt), (new_self, new_cross)
+    return x + L.mlp_apply(lp["mlp"], h, "gelu", dt, sharder=sharder), (new_self, new_cross)
 
 
-def _logits(p, x, cfg: ModelConfig, dt):
-    return L.unembed(p["head"], L.layernorm(p["dec_norm"], x, cfg.norm_eps), dt)
+def _logits(p, x, cfg: ModelConfig, dt, sharder=None):
+    logits = L.unembed(p["head"], L.layernorm(p["dec_norm"], x, cfg.norm_eps), dt)
+    return sharder.logits(logits) if sharder is not None else logits
 
 
-def whisper_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
+def whisper_forward(p, batch, cfg: ModelConfig, *, return_cache=False, sharder=None):
     """batch: {frames (B, F, d), tokens (B, S)}.  Returns (logits, cache):
     ``{"self": {k, v} (L, B, S, Hkv, hd), "cross": {k, v} (L, B, F, Hkv,
     hd)}`` when ``return_cache`` (prefill), else None."""
     dt = T.torch_dtype(cfg.dtype)
-    enc_out = encode(p, batch["frames"], cfg)
+    enc_out = encode(p, batch["frames"], cfg, sharder=sharder)
     x = L.embed(p["embed"], batch["tokens"], dt)
+    if sharder is not None:
+        x = sharder.act_btd(x)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     selfs, crosses = [], []
     for i in range(cfg.num_layers):
         x, (self_c, cross_c) = _dec_layer(T._layer(p["dec_layers"], i), x, enc_out, cfg,
-                                          positions=positions, dt=dt)
+                                          positions=positions, dt=dt, sharder=sharder)
         if return_cache:
             selfs.append(self_c)
             crosses.append(cross_c)
@@ -143,7 +148,7 @@ def whisper_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
     if return_cache:
         cache = {name: {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}
                  for name, cs in (("self", selfs), ("cross", crosses))}
-    return _logits(p, x, cfg, dt), cache
+    return _logits(p, x, cfg, dt, sharder), cache
 
 
 def whisper_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
@@ -160,19 +165,41 @@ def whisper_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
     return {"self": kv(max_len), "cross": kv(F)}
 
 
-def whisper_decode_step(p, cache, batch, cfg: ModelConfig):
+def whisper_decode_step(p, cache, batch, cfg: ModelConfig, *, sharder=None):
     """batch: {tokens (B, 1), pos scalar or (B,)}; the cross cache holds the
     encoder's K/V (from prefill).  The self cache is updated in place.
     Returns (logits (B, 1, V), cache)."""
     dt = T.torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
-    pos = torch.as_tensor(batch["pos"], device=x.device)
-    if pos.ndim == 0:
-        positions = pos.reshape(1).to(torch.int32)      # (t=1,) synchronous
-    else:
-        positions = pos[:, None].to(torch.int32)        # (B, t=1) per-slot
+    if sharder is not None:
+        x = sharder.act_btd(x)
+    pos = T.decode_positions(batch["pos"], x.device)
+    positions = T.query_positions(pos)
     for i in range(cfg.num_layers):
         x, _ = _dec_layer(T._layer(p["dec_layers"], i), x, None, cfg, positions=positions,
                           dt=dt, self_cache=T._layer(cache["self"], i), cache_pos=pos,
-                          cross_cache=T._layer(cache["cross"], i))
-    return _logits(p, x, cfg, dt), cache
+                          cross_cache=T._layer(cache["cross"], i), sharder=sharder)
+    return _logits(p, x, cfg, dt, sharder), cache
+
+
+def whisper_param_rules(cfg: ModelConfig):
+    ln = {"scale": [None, None], "bias": [None, None]}
+    attn = {
+        "wq": [None, ["fsdp"], "model", None],
+        "wk": [None, ["fsdp"], "model", None],
+        "wv": [None, ["fsdp"], "model", None],
+        "wo": [None, "model", None, ["fsdp"]],
+    }
+    mlp = {"w_up": [None, ["fsdp"], "model"], "w_down": [None, "model", ["fsdp"]]}
+    return {
+        "embed": {"table": [["fsdp"], "model"]},
+        "enc_layers": {"ln_attn": ln, "attn": attn, "ln_mlp": ln, "mlp": mlp},
+        "enc_norm": {"scale": [None], "bias": [None]},
+        "dec_layers": {
+            "ln_self": ln, "self_attn": attn,
+            "ln_cross": ln, "cross_attn": attn,
+            "ln_mlp": ln, "mlp": mlp,
+        },
+        "dec_norm": {"scale": [None], "bias": [None]},
+        "head": {"w": [["fsdp"], "model"]},
+    }

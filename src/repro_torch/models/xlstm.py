@@ -28,7 +28,9 @@ Differences from the reference, all forced by PyTorch or chosen for memory:
   reference masks after it, and where an exponent above the diagonal
   overflows its gradient is 0 * inf = NaN).
 
-The sharding hooks (``sharder``, ``xlstm_param_rules``) are not ported.
+Under a ``sharder`` the blocks' inner width splits over the model axis
+(the reference's constraints on ``xi`` and ``z``), and q, k, v and the
+gates take the heads layout the mLSTM kernel runs on locally.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _cast
+from repro_torch.core.dtensor import is_dtensor, lead
 
 #: the stabiliser of an empty state (``mlstm_state_init``/``slstm_state_init``)
 M_INIT = -1e30
@@ -64,6 +67,12 @@ def _dims(cfg: ModelConfig):
 # --------------------------------------------------------------------------
 # causal conv1d (width-w depthwise), with streaming state for decode
 # --------------------------------------------------------------------------
+
+
+def _log_sigmoid(x):
+    """``F.logsigmoid``; a DTensor takes ``-softplus(-x)``, the same
+    function (DTensor has no sharding rule for logsigmoid's backward)."""
+    return -F.softplus(-x) if is_dtensor(x) else F.logsigmoid(x)
 
 
 def causal_conv(p, x, dtype):
@@ -164,7 +173,7 @@ def mlstm_step(q, k, v, i_pre, f_pre, state):
     k = k[:, 0].float()
     v = v[:, 0].float()
     i_t = i_pre[:, 0].float()
-    f_t = F.logsigmoid(f_pre[:, 0].float())
+    f_t = _log_sigmoid(f_pre[:, 0].float())
     C, n, m = state
     m_new = torch.maximum(f_t + m, i_t)
     fp = torch.exp(f_t + m - m_new)
@@ -199,7 +208,7 @@ def mlstm_recurrent(q, k, v, i_pre, f_pre, state=None):
 # --------------------------------------------------------------------------
 
 
-def mlstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
+def mlstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False, sharder=None):
     """Returns (y, new_state); state = (C, n, m, conv_state).  In decode the
     (C, n, m) given are updated in place and returned."""
     xl = cfg.xlstm
@@ -210,6 +219,9 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     up = h @ _cast(p["w_up"], dt)
     xi, z = up.chunk(2, dim=-1)
+    if sharder is not None:
+        xi = sharder.constrain(xi, ["batch", None, "model"])
+        z = sharder.constrain(z, ["batch", None, "model"])
 
     if decode:
         C, n, m, conv_state = state
@@ -224,6 +236,10 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
     v = (xi @ _cast(p["wv"], dt)).reshape(B, S, H, dh)
     gates = xc @ _cast(p["w_if"], dt) + _cast(p["b_if"], dt)
     i_pre, f_pre = gates.reshape(B, S, 2 * H).chunk(2, dim=-1)
+    if sharder is not None:
+        heads = ["batch", None, "model", None]
+        q, k, v = (sharder.constrain(t, heads) for t in (q, k, v))
+        i_pre, f_pre = (sharder.constrain(t, heads[:3]) for t in (i_pre, f_pre))
 
     if decode:
         hcell, (C, n, m) = mlstm_step(q, k, v, i_pre, f_pre, (C, n, m))
@@ -233,6 +249,8 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
 
     hflat = L.rmsnorm(p["out_norm"], hcell.reshape(B, S, di), cfg.norm_eps)
     y = (hflat * F.silu(z)) @ _cast(p["w_down"], dt)
+    if sharder is not None:
+        y = sharder.act_btd(y)
     if not decode:
         conv_state = _conv_tail(xi, xl.conv_width)
     return x + y, (C, n, m, conv_state)
@@ -273,7 +291,7 @@ def _slstm_cell(gates_x, hcnm, r_gates):
     rec = torch.einsum("bhk,ghkl->bghl", _cast(hh, r_gates.dtype), r_gates)
     pre = (gates_x + rec.reshape(B, 4 * d)).float()
     i_p, f_p, z_p, o_p = pre.chunk(4, dim=-1)
-    f_log = F.logsigmoid(f_p)
+    f_log = _log_sigmoid(f_p)
     m_new = torch.maximum(f_log + m, i_p)
     i_g = torch.exp(i_p - m_new)
     f_g = torch.exp(f_log + m - m_new)
@@ -283,7 +301,7 @@ def _slstm_cell(gates_x, hcnm, r_gates):
     return (h_new.to(h.dtype), c_new, n_new, m_new)
 
 
-def slstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
+def slstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False, sharder=None):
     """Returns (y, new_state); state = (h, c, n, m, conv_state)."""
     dt = _dt(cfg.dtype)
     B, S, d = x.shape
@@ -310,6 +328,8 @@ def slstm_block_apply(p, x, cfg: ModelConfig, *, state=None, decode=False):
     hs = L.rmsnorm(p["out_norm"], hs, cfg.norm_eps)
     a, b = (hs @ _cast(p["w_up"], dt)).chunk(2, dim=-1)
     y = (F.gelu(a, approximate="tanh") * b) @ _cast(p["w_down"], dt)  # jax.nn.gelu default
+    if sharder is not None:
+        y = sharder.act_btd(y)
     if not decode:
         conv_state = _conv_tail(hin, cfg.xlstm.conv_width)
     return x + y, (*st, conv_state)
@@ -341,7 +361,7 @@ def _group_counts(cfg: ModelConfig):
 
 def _at(tree, g: int, j: int):
     """Block ``(g, j)`` of a stacked param dict, as views."""
-    return {k: _at(v, g, j) if isinstance(v, dict) else v[g, j] for k, v in tree.items()}
+    return {k: _at(v, g, j) if isinstance(v, dict) else lead(v, g, j) for k, v in tree.items()}
 
 
 def xlstm_init(cfg: ModelConfig, *, device, generator: torch.Generator):
@@ -404,25 +424,28 @@ def _stack_states(states):
                  for i in range(len(states[0][0])))
 
 
-def xlstm_forward(p, batch, cfg: ModelConfig, *, return_cache=False):
+def xlstm_forward(p, batch, cfg: ModelConfig, *, return_cache=False, sharder=None):
     """Train/prefill forward.  Returns (logits, cache): the cache is
     ``{"mlstm": (C, n, m, conv), "slstm": (h, c, n, m, conv)}`` with leaves
     ``(G, M|Sl, B, ...)`` when ``return_cache``, else None."""
     G, M, Sl = _group_counts(cfg)
     dt = _dt(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
+    if sharder is not None:
+        x = sharder.act_btd(x)
     mst, sst = [], []
     for g in range(G):
         mst.append([])
         for j in range(M):
-            x, st = T.remat(mlstm_block_apply, cfg, x)(_at(p["mlstm"], g, j), x, cfg)
+            x, st = T.remat(mlstm_block_apply, cfg, x)(_at(p["mlstm"], g, j), x, cfg,
+                                                       sharder=sharder)
             mst[-1].append(st)
         sst.append([])
         for j in range(Sl):
-            x, st = T.remat(slstm_block_apply, cfg, x)(_at(p["slstm"], g, j), x, cfg)
+            x, st = T.remat(slstm_block_apply, cfg, x)(_at(p["slstm"], g, j), x, cfg,
+                                                       sharder=sharder)
             sst[-1].append(st)
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(p["head"], x, dt)
+    logits = _logits(p, x, cfg, dt, sharder)
     if not return_cache:
         return logits, None
     return logits, {"mlstm": _stack_states(mst), "slstm": _stack_states(sst)}
@@ -440,21 +463,79 @@ def xlstm_init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *, device):
             "slstm": rep(slstm_state_init(cfg, batch, device=device), Sl)}
 
 
-def xlstm_decode_step(p, cache, batch, cfg: ModelConfig):
+def _logits(p, x, cfg: ModelConfig, dt, sharder=None):
+    logits = L.unembed(p["head"], L.rmsnorm(p["final_norm"], x, cfg.norm_eps), dt)
+    return sharder.logits(logits) if sharder is not None else logits
+
+
+def xlstm_decode_step(p, cache, batch, cfg: ModelConfig, *, sharder=None):
     """One decode step: ``batch = {tokens: (B, 1), ...}`` (positions are not
     read).  Every state leaf of ``cache`` is updated in place.  Returns
     (logits (B, 1, V), cache)."""
     G, M, Sl = _group_counts(cfg)
     dt = _dt(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
+    if sharder is not None:
+        x = sharder.act_btd(x)
     for g in range(G):
         for kind, count, apply in (("mlstm", M, mlstm_block_apply),
                                    ("slstm", Sl, slstm_block_apply)):
             for j in range(count):
-                lanes = tuple(leaf[g, j] for leaf in cache[kind])
-                x, new = apply(_at(p[kind], g, j), x, cfg, state=lanes, decode=True)
+                lanes = tuple(lead(leaf, g, j) for leaf in cache[kind])
+                x, new = apply(_at(p[kind], g, j), x, cfg, state=lanes, decode=True,
+                               sharder=sharder)
                 for dst, src in zip(lanes, new):
                     if src is not dst:
                         dst.copy_(src)
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return L.unembed(p["head"], x, dt), cache
+    return _logits(p, x, cfg, dt, sharder), cache
+
+
+def xlstm_param_rules(cfg: ModelConfig):
+    mb = {
+        "ln": {"scale": [None, None, None]},
+        "w_up": [None, None, ["fsdp"], "model"],
+        "conv": {"w": [None, None, None, "model"]},
+        "wq": [None, None, "model", None],
+        "wk": [None, None, "model", None],
+        "wv": [None, None, "model", None],
+        "w_if": [None, None, "model", None],
+        "b_if": [None, None, None],
+        "out_norm": {"scale": [None, None, None]},
+        "w_down": [None, None, "model", ["fsdp"]],
+    }
+    sb = {
+        "ln": {"scale": [None, None, None]},
+        "conv": {"w": [None, None, None, None]},
+        "w_gates": [None, None, ["fsdp"], None],
+        "r_gates": [None, None, None, None, None, None],
+        "b_gates": [None, None, None],
+        "out_norm": {"scale": [None, None, None]},
+        "w_up": [None, None, ["fsdp"], "model"],
+        "w_down": [None, None, "model", ["fsdp"]],
+    }
+    return {
+        "embed": {"table": [["fsdp"], "model"]},
+        "mlstm": mb,
+        "slstm": sb,
+        "final_norm": {"scale": [None]},
+        "head": {"w": [["fsdp"], "model"]},
+    }
+
+
+def xlstm_cache_rules():
+    """The recurrent state's rules (the reference's ``build_model`` cache
+    rules of the ssm family)."""
+    m_rule = (
+        [None, None, "batch", None, "model", None],   # C
+        [None, None, "batch", None, "model"],         # n
+        [None, None, "batch", None],                  # m
+        [None, None, "batch", None, "model"],         # conv
+    )
+    s_rule = (
+        [None, None, "batch", "model"],
+        [None, None, "batch", "model"],
+        [None, None, "batch", "model"],
+        [None, None, "batch", "model"],
+        [None, None, "batch", None, "model"],
+    )
+    return {"mlstm": m_rule, "slstm": s_rule}

@@ -30,7 +30,13 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mamba2 import mamba2_block_apply, mamba2_block_init, mamba2_state_init
+from repro_torch.models.mamba2 import (
+    mamba2_block_apply,
+    mamba2_block_init,
+    mamba2_param_rules,
+    mamba2_state_init,
+)
+from repro_torch.core.dtensor import lead
 from repro_torch.models.xlstm import _at, _stack_states
 
 
@@ -63,7 +69,8 @@ def zamba2_init(cfg: ModelConfig, *, device, generator: torch.Generator):
     }
 
 
-def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False, window=None):
+def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False, window=None,
+                   sharder=None):
     """Train/prefill forward, the shared block windowed by ``window``
     (default ``cfg.ssm.attn_window``).  Returns (logits, cache): the cache is
     ``{"mamba": (h, conv), "attn_kv": {"k", "v"}}`` with Mamba2 leaves
@@ -73,17 +80,20 @@ def zamba2_forward(p, batch, cfg: ModelConfig, *, return_cache=False, window=Non
     win = window if window is not None else cfg.ssm.attn_window
     dt = T.torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
+    if sharder is not None:
+        x = sharder.act_btd(x)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     mst, kvs = [], []
     for g in range(G):
         mst.append([])
         for j in range(per):
-            x, st = T.remat(mamba2_block_apply, cfg, x)(_at(p["mamba"], g, j), x, cfg)
+            x, st = T.remat(mamba2_block_apply, cfg, x)(_at(p["mamba"], g, j), x, cfg,
+                                                        sharder=sharder)
             mst[-1].append(st)
-        x, kv, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions, window=win)
+        x, kv, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions, window=win,
+                                 sharder=sharder)
         kvs.append(kv)
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(p["head"], x, dt)
+    logits = _logits(p, x, cfg, dt, sharder)
     if not return_cache:
         return logits, None
     return logits, {"mamba": _stack_states(mst),
@@ -105,7 +115,12 @@ def zamba2_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, win
             "attn_kv": {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}}
 
 
-def zamba2_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
+def _logits(p, x, cfg: ModelConfig, dt, sharder=None):
+    logits = L.unembed(p["head"], L.rmsnorm(p["final_norm"], x, cfg.norm_eps), dt)
+    return sharder.logits(logits) if sharder is not None else logits
+
+
+def zamba2_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None, sharder=None):
     """One decode step: ``batch = {tokens: (B, 1), pos: scalar or (B,)}``,
     the shared block windowed by ``window`` (default
     ``cfg.ssm.attn_window``) over a ring cache.  Every leaf of ``cache`` is
@@ -114,19 +129,48 @@ def zamba2_decode_step(p, cache, batch, cfg: ModelConfig, *, window=None):
     win = window if window is not None else cfg.ssm.attn_window
     dt = T.torch_dtype(cfg.dtype)
     x = L.embed(p["embed"], batch["tokens"], dt)
-    pos = torch.as_tensor(batch["pos"], device=x.device)
-    if pos.ndim == 0:
-        positions = pos.reshape(1).to(torch.int32)      # (t=1,) synchronous
-    else:
-        positions = pos[:, None].to(torch.int32)        # (B, t=1) per-slot
+    if sharder is not None:
+        x = sharder.act_btd(x)
+    pos = T.decode_positions(batch["pos"], x.device)
+    positions = T.query_positions(pos)
     for g in range(G):
         for j in range(per):
-            lanes = tuple(leaf[g, j] for leaf in cache["mamba"])
-            x, new = mamba2_block_apply(_at(p["mamba"], g, j), x, cfg, state=lanes, decode=True)
+            lanes = tuple(lead(leaf, g, j) for leaf in cache["mamba"])
+            x, new = mamba2_block_apply(_at(p["mamba"], g, j), x, cfg, state=lanes, decode=True,
+                                        sharder=sharder)
             for dst, src in zip(lanes, new):
                 if src is not dst:
                     dst.copy_(src)
         x, _, _ = T.layer_apply(p["shared_attn"], x, cfg, positions=positions,
-                             cache=T._layer(cache["attn_kv"], g), cache_pos=pos, window=win)
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return L.unembed(p["head"], x, dt), cache
+                                cache=T._layer(cache["attn_kv"], g), cache_pos=pos,
+                                window=win, sharder=sharder)
+    return _logits(p, x, cfg, dt, sharder), cache
+
+
+def zamba2_param_rules(cfg: ModelConfig):
+    shared = T.lm_param_rules(cfg)["layers"]
+    # shared_attn is unstacked: drop the leading layer dim of each rule
+    drop_lead = lambda tree: {k: drop_lead(v) if isinstance(v, dict) else v[1:]
+                              for k, v in tree.items()}
+    return {
+        "embed": {"table": [["fsdp"], "model"]},
+        "mamba": mamba2_param_rules(prefix_dims=2),
+        "shared_attn": drop_lead(shared),
+        "final_norm": {"scale": [None]},
+        "head": {"w": [["fsdp"], "model"]},
+    }
+
+
+def zamba2_cache_rules():
+    """Mamba2 states and the shared block's KV caches (the reference's
+    ``build_model`` cache rules of the hybrid family)."""
+    return {
+        "mamba": (
+            [None, None, "batch", "model", None, None],  # h
+            [None, None, "batch", None, "model"],        # conv
+        ),
+        "attn_kv": {
+            "k": [None, "batch", None, "model", None],
+            "v": [None, "batch", None, "model", None],
+        },
+    }

@@ -53,7 +53,7 @@ def tree_map(fn, tree, *rest):
 
 def init(params, *, state_dtype: str = "float32") -> dict:
     sd = getattr(torch, state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=sd, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=sd)   # a DTensor's moments: its placements
     device = tree_leaves(params)[0].device
     return {
         "mu": tree_map(zeros, params),

@@ -62,8 +62,7 @@ def ef_decompress_tree(qtree):
 
 
 def ef_init(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 # --------------------------------------------------------------------------

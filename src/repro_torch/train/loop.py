@@ -6,7 +6,11 @@ The loop itself is ordinary PyTorch; what HAM adds is the control plane:
 as active messages under the reference's explicit names, so a host (or any
 peer) drives a training worker exactly as HAM-Offload drives an
 accelerator.  ``device=None`` trains on the card (raising where there is
-none); ``init(seed)`` draws the params from the port's generator.
+none); ``init(seed)`` draws the params from the port's generator.  With a
+``sharder`` the params and the AdamW moments are DTensors placed by the
+model's ``param_rules`` and each batch leaf by its batch rule (every rank
+draws the same params and batch and keeps its shard); checkpoints gather
+each leaf and hold the unsharded trainer's manifest and bytes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import time
 from repro_torch.ckpt.store import CheckpointStore
 from repro_torch.core.registry import default_registry
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, as_tensors, batch_for_model
-from repro_torch.models.api import build_model
+from repro_torch.models.api import batch_rules, build_model
 from repro_torch.optim import adamw
 from repro_torch.train.step import build_train_step
 
@@ -61,8 +65,18 @@ class Trainer:
 
     def init(self, seed: int = 0) -> None:
         self.params = self.model.init(seed)
+        if self.sharder is not None:
+            self.params = self.sharder.distribute(self.params, self.model.param_rules())
         self.opt_state = adamw.init(self.params)
         self.step = 0
+
+    def batch(self, step: int) -> dict:
+        """The batch of ``step`` on the device, placed on the mesh when
+        sharded."""
+        batch = as_tensors(batch_for_model(self.data, self.cfg, step), self.device)
+        if self.sharder is not None:
+            batch = {k: self.sharder.distribute(v, batch_rules(k)) for k, v in batch.items()}
+        return batch
 
     def maybe_restore(self) -> bool:
         """Restart path: resume from the latest checkpoint if one exists."""
@@ -107,7 +121,7 @@ class Trainer:
         for _ in range(n):
             if self._stop_requested:
                 break
-            batch = as_tensors(batch_for_model(self.data, self.cfg, self.step), self.device)
+            batch = self.batch(self.step)
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch
             )

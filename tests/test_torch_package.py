@@ -81,6 +81,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
                     device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_reduced("xlstm-1.3b"))
+    from repro_torch.launch.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("data", "model"))
 
 
 def _launch_counts():
@@ -150,6 +154,22 @@ def test_kernel_wrappers_raise_for_non_cpu_requests(kernel):
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build([source])
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
+def test_meta_requests_take_the_plain_version_only_in_a_dry_run(kernel):
+    """Inside ``plain_on_meta`` (what a dry-run's ``op_analysis.analyze``
+    runs its step in) a ``meta`` request takes the plain version, shapes
+    only, and counts no launch; once the block ends it goes to the kernel
+    path again."""
+    from repro_torch.kernels import _build
+
+    before = _launch_counts()
+    with _build.plain_on_meta():
+        assert _call(kernel, "meta").device.type == "meta"
+    assert _launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        _call(kernel, "meta")
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
