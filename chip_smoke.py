@@ -131,10 +131,19 @@ Phases, in order; any failure raises and exits non-zero:
    interpreters beside 9a-9d) ``python -m repro_torch.launch.dryrun`` of
    internlm2-20b train_4k and decode_32k and llama3-405b train_4k on
    pod16x16 (256 fake ranks), per-GPU bytes against 80 GB;
-10. print the kernel line, one serving line per model, the phase 5b line,
-   the cluster serving line, the process-fabrics line, the train line and
-   the sharded line (JSON);
-11. last line: ``{"ok": true, "device": {...}}``.
+10. the port's static analysis and its examples: ``python -m
+   repro_torch.analysis.hamlint`` over ``src/repro_torch`` (exit 0) and
+   over ``tests/fixtures/hamlint_bad_torch`` (exit 1), ``modelcheck
+   --quick`` (5 passes), then the four example twins (``examples/torch_*``)
+   on the card, each in a fresh interpreter: the serve twin on
+   olmoe-1b-7b at full config in bf16, the train twin through its
+   restart, the quickstart and the offload pipeline; each exits 0 with its
+   own last line, and the serve and train runs' kernel launches are exact
+   for the steps and admissions they print;
+11. print the kernel line, one serving line per model, the phase 5b line,
+   the cluster serving line, the process-fabrics line, the train line, the
+   sharded line and the examples line (JSON);
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; imports nothing of JAX or of the reference package ``repro``.
 """
@@ -144,6 +153,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -1903,6 +1914,25 @@ def timed_engine(eng):
     return ttft, step_s
 
 
+def serve_launches(cfg, steps: int, admissions: int) -> dict:
+    """The kernel launches of a ``ServingEngine`` of ``cfg`` over ``steps``
+    decode steps and ``admissions`` prefills, by KERNELS name: no variant,
+    no backward."""
+    xlstm = cfg.family == "ssm"
+    hybrid = cfg.family == "hybrid"
+    # attention layers (zamba2: applications of the shared block)
+    L_attn = (0 if xlstm else cfg.num_layers // cfg.ssm.attn_every if hybrid
+              else cfg.num_layers)
+    per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
+    L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
+    L_ssd = cfg.num_layers if hybrid else 0
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(decode_attention=L_attn * steps, flash_attention=L_attn * admissions,
+                    grouped_matmul=3 * L_attn * (steps + admissions) if cfg.moe else 0,
+                    mlstm=L_mlstm * admissions, mamba2_ssd=L_ssd * admissions)
+    return expected
+
+
 def serve(torch, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -1977,16 +2007,7 @@ def serve(torch, arch: str) -> dict:
     launches = read_counts()
     admissions = 16 + len(block) + n_long + 1
     steps = eng.steps_dispatched
-    # attention layers (zamba2: applications of the shared block)
-    L_attn = (0 if xlstm else cfg.num_layers // cfg.ssm.attn_every if hybrid
-              else cfg.num_layers)
-    per = (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group) if xlstm else 1
-    L_mlstm = cfg.num_layers // per * cfg.xlstm.mlstm_per_group if xlstm else 0
-    L_ssd = cfg.num_layers if hybrid else 0
-    expected = dict.fromkeys(launches, 0)   # no variant, no backward
-    expected.update(decode_attention=L_attn * steps, flash_attention=L_attn * admissions,
-                    grouped_matmul=3 * L_attn * (steps + admissions) if cfg.moe else 0,
-                    mlstm=L_mlstm * admissions, mamba2_ssd=L_ssd * admissions)
+    expected = serve_launches(cfg, steps, admissions)
     check(launches == expected,
           f"{arch} launches {launches} != {expected} ({cfg.num_layers} layers, {steps} steps, "
           f"{admissions} admissions)")
@@ -3178,33 +3199,34 @@ def card_vs_cpu(torch, arch: str, steps: int, layers: int = 2) -> dict:
 
 def train_launches(cfg, steps: int) -> tuple[dict, str]:
     """The kernel launches ``steps`` trainer steps of ``cfg`` make, and the
-    rule they follow.  Under full remat (``transformer.remat``) a layer's
+    rule they follow.  Under remat (``transformer.remat``) a layer's
     forward runs twice, once in the forward pass and again before its
     backward, and its backward once: so every kernel of a rematerialised
-    layer launches its forward twice a step and its backward once.
-    zamba2's shared attention block is applied outside remat
-    (``zamba2.py:81`` rematerialises only the Mamba2 blocks): its flash
-    forward and backward launch once an application."""
+    layer launches its forward twice a step and its backward once; with
+    ``remat="none"`` once each.  zamba2's shared attention block is applied
+    outside remat (``zamba2.py:81`` rematerialises only the Mamba2 blocks):
+    its flash forward and backward launch once an application."""
     L = cfg.num_layers
+    fwd = 1 if cfg.remat == "none" else 2
+    how = "without remat: its forward once a step" if fwd == 1 else \
+        "each rematerialised: its forward twice a step"
     if cfg.family == "ssm":   # xLSTM: the sLSTM layers run plain ops
         from repro_torch.models.xlstm import _group_counts
         G, M, _ = _group_counts(cfg)
-        return ({"mlstm": 2 * G * M * steps, "mlstm_backward": G * M * steps},
-                f"{G * M} mLSTM layers, each rematerialised: its kernel twice a step, its "
-                f"backward once; the sLSTM layers launch none")
+        return ({"mlstm": fwd * G * M * steps, "mlstm_backward": G * M * steps},
+                f"{G * M} mLSTM layers, {how}, its backward once; the sLSTM layers launch "
+                f"none")
     if cfg.family == "hybrid":   # zamba2
         apps = L // cfg.ssm.attn_every
-        return ({"mamba2_ssd": 2 * L * steps, "mamba2_ssd_backward": L * steps,
+        return ({"mamba2_ssd": fwd * L * steps, "mamba2_ssd_backward": L * steps,
                  "flash_attention": apps * steps, "flash_attention_backward": apps * steps},
-                f"{L} Mamba2 blocks, each rematerialised: the SSD kernel twice a step, its "
-                f"backward once; {apps} application(s) of the shared attention outside "
-                f"remat: flash forward and backward once each")
-    return ({"flash_attention": 2 * L * steps, "flash_attention_backward": L * steps,
-             "grouped_matmul": 6 * L * steps if cfg.moe else 0,
+                f"{L} Mamba2 blocks, {how}, its backward once; {apps} application(s) of the "
+                f"shared attention outside remat: flash forward and backward once each")
+    return ({"flash_attention": fwd * L * steps, "flash_attention_backward": L * steps,
+             "grouped_matmul": 3 * fwd * L * steps if cfg.moe else 0,
              "grouped_matmul_backward": 3 * L * steps if cfg.moe else 0},
-            "flash forward twice a layer under full remat, its backward once; 3 grouped-matmul "
-            "forwards a MoE layer, twice, and one backward launch each (bf16: dx and dw in one "
-            "call)")
+            f"{L} attention layers, {how}, flash backward once; 3 grouped-matmul forwards a "
+            f"MoE layer each pass and one backward launch each (bf16: dx and dw in one call)")
 
 
 def train_full(torch, arch: str, layers: int, steps: int) -> dict:
@@ -3896,15 +3918,16 @@ def start_child(args):
     return proc, args, time.perf_counter()
 
 
-def finish_child(child, timeout: float) -> tuple[str, float]:
-    """The child's stdout and its seconds from start to exit."""
+def finish_child(child, timeout: float, expect: int = 0) -> tuple[str, float]:
+    """The child's stdout and its seconds from start to exit; its exit code
+    must be ``expect``."""
     proc, args, t0 = child
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     finally:
         proc.kill()
-    check(proc.returncode == 0, f"{args[:4]} failed with exit code {proc.returncode}: "
-                                f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    check(proc.returncode == expect, f"{args[:4]} exited with code {proc.returncode}, not "
+                                     f"{expect}: {stdout[-2000:]}\n{stderr[-2000:]}")
     return stdout, time.perf_counter() - t0
 
 
@@ -4021,6 +4044,131 @@ def sharding_phase(torch, train8: dict, card: str, children: dict) -> dict:
     return out
 
 
+# -- phase 10: the port's static analysis and its four examples --------------
+
+# each host-only check: (python -m arguments, the exit code it must give)
+ANALYSIS = (
+    (("repro_torch.analysis.hamlint", "src/repro_torch"), 0),
+    (("repro_torch.analysis.hamlint", "tests/fixtures/hamlint_bad_torch"), 1),
+    (("repro_torch.analysis.modelcheck", "--quick"), 0),
+)
+# the train twin's steps and its restart step, cut to pass the restart
+# in a few steps (the twin's defaults: 300 and 100)
+TRAIN_DEMO = (40, 30)
+# each example twin with the arguments it runs with here, besides its
+# default device (the card)
+EXAMPLE_RUNS = {
+    "torch_serve_batched": (),
+    "torch_train_e2e": ("--steps", str(TRAIN_DEMO[0]), "--log-every", "10", "--restart-demo",
+                        "--restart-at", str(TRAIN_DEMO[1])),
+    "torch_quickstart": (),
+    "torch_offload_pipeline": (),
+}
+# an example as the user runs it, in a fresh interpreter, then a last line:
+# its kernel launches and its seconds from its first import to its end
+EXAMPLE_CHILD = """
+import json, runpy, sys, time
+t0 = time.perf_counter()
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+seconds = time.perf_counter() - t0
+import chip_smoke
+print(json.dumps({"launches": chip_smoke.read_counts(), "seconds": seconds}))
+"""
+
+
+def start_example(name: str, *extra: str):
+    device = () if DEVICE == "cuda" else ("--device", DEVICE)   # the default: the card
+    return start_child(["-c", EXAMPLE_CHILD, str(ROOT / "examples" / f"{name}.py"),
+                        *EXAMPLE_RUNS[name], *device, *extra])
+
+
+def finish_example(child, name: str) -> tuple[list[str], dict]:
+    """The example's output lines (the counters' line taken off) and its
+    launches; it exited 0."""
+    stdout, _ = finish_child(child, 600)
+    lines = stdout.strip().splitlines()
+    res = json.loads(lines.pop())
+    print(f"phase 10 {name}: {res['seconds']:.1f} s; {lines[-1]}")
+    return lines, dict(res, last_line=lines[-1])
+
+
+def examples_phase() -> dict:
+    """Phase 10: the port's hamlint over ``src/repro_torch`` (clean) and over
+    the torch fixture corpus (findings), ``modelcheck --quick`` (5 passes),
+    then the four example twins on the card, each a fresh interpreter: the
+    serve twin on olmoe-1b-7b at full config in bf16, the train twin
+    through its restart, the two runtime examples; each exits 0 and prints
+    its last line, and the serve and train runs' launches are exactly what
+    their printed steps and admissions make (the runtime examples launch
+    none).  The host-only checks run first; the four examples then start
+    together and share the card (their counters are their own)."""
+    import re
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {"analysis": {}}
+    for args, code in ANALYSIS:
+        stdout, wall = finish_child(start_child(["-m", *args]), 120, expect=code)
+        key = " ".join(args)
+        out["analysis"][key] = {"exit": code, "seconds": wall}
+        if args[0].endswith("modelcheck"):
+            check(stdout.count("[PASS]") == 5, f"modelcheck --quick: {stdout}")
+        else:   # clean, or findings in the path:line:col: RULE format
+            findings = re.findall(r"^\S+:\d+:\d+: (HAM00[1-4]) ", stdout, re.M)
+            check(len(findings) == len(stdout.strip().splitlines()) and bool(findings) == bool(code),
+                  f"hamlint {args[1]}: {stdout}")
+            out["analysis"][key]["findings"] = len(findings)
+        print(f"phase 10 {key}: exit {code}, {wall:.1f} s")
+    ckpt = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    children = {name: start_example(name, *(("--ckpt-dir", str(ckpt)) if name ==
+                                            "torch_train_e2e" else ()))
+                for name in EXAMPLE_RUNS}
+    serve_lines, out["torch_serve_batched"] = finish_example(
+        children.pop("torch_serve_batched"), "torch_serve_batched")
+    train_lines, out["torch_train_e2e"] = finish_example(
+        children.pop("torch_train_e2e"), "torch_train_e2e")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for name, child in children.items():
+        lines, out[name] = finish_example(child, name)
+        check(lines[-1] == f"OK ({DEVICE})", f"{name} ended with {lines[-1]!r}")
+        check(not any(out[name]["launches"].values()),
+              f"{name} launched kernels: {out[name]['launches']}")
+
+    # the serve twin: olmoe-1b-7b at its published width and depth, bf16
+    cfg = get_config("olmoe-1b-7b")
+    check(any(f"arch={cfg.name}  {cfg.num_layers} layers" in line
+              and f"(bfloat16) on {DEVICE}" in line for line in serve_lines),
+          f"torch_serve_batched: {serve_lines[:2]}")
+    tokens, steps, admissions = map(int, re.search(
+        r"(\d+) tokens in .* over (\d+) batched steps and (\d+) admissions",
+        serve_lines[-1]).groups())
+    check(tokens > 0 and admissions == 8, f"torch_serve_batched: {serve_lines[-1]}")
+    want = serve_launches(cfg, steps, admissions)
+    got = out["torch_serve_batched"]["launches"]
+    check(got == want, f"torch_serve_batched launches {got} != {want} ({steps} steps, "
+                       f"{admissions} admissions)")
+    out["torch_serve_batched"].update(steps=steps, admissions=admissions, tokens=tokens)
+
+    # the train twin: every step it ran, on the example's own config
+    demo = runpy.run_path(str(ROOT / "examples" / "torch_train_e2e.py"))["CFG_100M"]
+    final = re.fullmatch(r"final loss: (\S+) at step (\d+)", train_lines[-1])
+    check(final is not None and np.isfinite(float(final.group(1))),
+          f"torch_train_e2e: {train_lines[-1]}")
+    check(f">> resumed at step {TRAIN_DEMO[1]}" in train_lines, f"torch_train_e2e: {train_lines}")
+    steps = int(final.group(2))
+    check(steps == TRAIN_DEMO[0], f"torch_train_e2e ran {steps} steps")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(train_launches(demo, steps)[0])
+    got = out["torch_train_e2e"]["launches"]
+    check(got == want, f"torch_train_e2e launches {got} != {want} ({steps} steps)")
+    out["torch_train_e2e"].update(steps=steps, final_loss=float(final.group(1)))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4126,11 +4274,15 @@ def main() -> int:
     sharded = sharding_phase(torch, train["internlm2-20b"], smi[0], children)
     release(torch)
     print(f"phase 9 took {sharded['phase_s']:.1f} s (on the card {sharded['card_s']:.1f} s)")
+    examples = examples_phase()
+    examples["card"] = smi[0]
+    print(f"phase 10 took {examples['phase_s']:.1f} s")
     runs = [s["launches"] for s in (*served.values(), *full.values())] + [
         cluster[m]["launches"]
         for m in ("single_engine", "worker_driven", "lockstep", "worker_driven_1_worker")] + [
         train[arch]["launches"] for arch, _, _ in TRAINED] + [
-        sharded["train"]["launches"], *(d["launches"] for d in sharded["decode"].values())]
+        sharded["train"]["launches"], *(d["launches"] for d in sharded["decode"].values())] + [
+        examples[name]["launches"] for name in EXAMPLE_RUNS]
 
     extra = ("ms_by_splits", "previous", "host_us", "passes_ms", "causal_ms", "causal_bound_ms",
              "window_over_causal", "turns_ms", "bf16_ms", "bf16_bound_ms", "caches_cycled",
@@ -4167,6 +4319,7 @@ def main() -> int:
     print(json.dumps({"process_fabrics": fabrics}))
     print(json.dumps({"train": train}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

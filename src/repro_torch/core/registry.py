@@ -201,7 +201,7 @@ def _derive_stable_name(fn: Callable, specs: tuple | None, explicit: str | None)
 
 
 def _validate_registration(fn, arg_specs, result_specs, name) -> None:
-    """Call-time twin of the static checks in the reference's ``repro.analysis.hamlint``:
+    """Call-time twin of the static checks in ``repro_torch.analysis.hamlint``:
     everything hamlint rejects statically that is *cheap* to verify here is
     rejected at the registration site too, so the dynamic path and the
     static pass can never disagree silently.

@@ -30,7 +30,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "scripts").glob("*.py")),
+                         + sorted((ROOT / "scripts").glob("*.py"))
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
@@ -85,6 +86,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh((1, 1), ("data", "model"))
+    # the four example twins: without --device cpu they raise (no card seen)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 4
+    procs = [subprocess.Popen([sys.executable, str(p)], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for p in twins]
+    try:
+        results = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for path, proc, (out, err) in zip(twins, procs, results):
+        assert proc.returncode != 0 and "RuntimeError: no CUDA device" in err, (path, out, err)
 
 
 def _launch_counts():

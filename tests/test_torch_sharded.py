@@ -10,7 +10,18 @@
 * reduced olmoe-1b-7b: prefill + decode logits with the experts split over
   the model axis (EP) and with their ``f`` split (TP-in-expert, whose down
   projection sums partial products across ranks);
-* reduced zamba2-2.7b: one step's loss.
+* reduced zamba2-2.7b: one step's loss, and the prefill logits and 4
+  greedy decode steps over a Mamba2 state whose heads are split over the
+  model axis;
+* reduced xlstm-1.3b: one step's loss and every gradient (within TOL with
+  float64 weights and activations; in float32 within twice the unsharded
+  float32 gradients' own gap to float64's), and the prefill logits and 4 greedy decode
+  steps, the mLSTM heads split over the model axis (``kernels/ops.py``
+  ``_sharded_scan``);
+* reduced whisper-large-v3: one step's loss and every gradient, and the
+  prefill logits and 4 greedy decode steps over the self and cross caches;
+* reduced qwen2-moe-a2.7b (TP-in-expert, shared experts): one step's loss
+  and every gradient, and the prefill logits and 4 greedy decode steps.
 
 The losses are also held against ``repro``'s within 1e-4.  The workers are
 this file run as a script, each a fresh interpreter that imports neither
@@ -30,6 +41,8 @@ import pytest
 
 TOL = 1e-5
 WORLD = 4
+ARCHS = ("internlm2-20b", "olmoe-1b-7b", "zamba2-2.7b", "xlstm-1.3b", "whisper-large-v3",
+         "qwen2-moe-a2.7b")
 
 
 def _gap(a, b) -> float:
@@ -50,7 +63,7 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.plans import plan_for
-    from repro_torch.models.api import batch_rules, build_model
+    from repro_torch.models.api import batch_rules, build_model, tree_map
     from repro_torch.models.config import ShapeCell
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.sharding import Sharder
@@ -66,6 +79,7 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
     out = {}
 
     def load(arch, cfg):
+        """(params, the prompt batch: tokens, and frames for whisper)."""
         z = np.load(os.path.join(data_dir, f"{arch}.npz"))
         flat = {k: z[k] for k in z.files if k.startswith("p/")}
         tree: dict = {}
@@ -75,16 +89,19 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             node[parts[-1]] = arr
-        return params_from_numpy(tree, cfg, "cpu"), torch.from_numpy(z["tokens"])
+        batch = {k: torch.from_numpy(z[k]) for k in ("tokens", "frames") if k in z.files}
+        return params_from_numpy(tree, cfg, "cpu"), batch
 
     def full(t):
         return t.full_tensor() if hasattr(t, "full_tensor") else t
 
-    def train_case(arch, grads_too):
-        cfg = get_reduced(arch)
+    unsharded_grads = {}   # (arch, dtype): the unsharded gradients as numpy
+
+    def train_case(arch, grads_too, dtype="float32"):
+        cfg = dataclasses.replace(get_reduced(arch), dtype=dtype, param_dtype=dtype)
         m = build_model(cfg, device="cpu")
-        p, tok = load(arch, cfg)
-        batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+        p, batch = load(arch, cfg)
+        batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
         loss, _, grads = value_and_grad(m, p, batch)
         sh = Sharder(mesh, plan_for(arch, train))
         dp = sh.distribute(p, m.param_rules())
@@ -92,32 +109,38 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
         sloss, _, sgrads = value_and_grad(m, dp, db, sh)
         res = {"loss": float(loss), "sharded_loss": float(sloss)}
         if grads_too:
-            res["grad_gap"] = max(_gap(full(g).detach().numpy(), r.detach().numpy())
-                                  for g, r in zip(tree_leaves(sgrads), tree_leaves(grads)))
-            res["grads"] = len(tree_leaves(grads))
+            ref = unsharded_grads[arch, dtype] = [r.detach().numpy() for r in tree_leaves(grads)]
+            res["grad_gap"] = max(_gap(full(g).detach().numpy(), r)
+                                  for g, r in zip(tree_leaves(sgrads), ref))
+            res["grads"] = len(ref)
         return res
 
     def decode_case(arch, cfg, steps):
         m = build_model(cfg, device="cpu")
-        p, tok = load(arch, cfg)
+        p, batch = load(arch, cfg)
+        tok = batch["tokens"]
         S = tok.shape[1]
         sh = Sharder(mesh, plan_for(arch, serve))
         dp = sh.distribute(p, m.param_rules())
         res = {"logit_gap": 0.0, "tokens_equal": True}
         with torch.no_grad():
-            logits, cache = m.prefill(p, {"tokens": tok})
-            slogits, _ = m.prefill(dp, {"tokens": sh.distribute(tok, ["batch", None])},
-                                   sharder=sh)
+            logits, cache = m.prefill(p, batch)
+            slogits, _ = m.prefill(dp, {k: sh.distribute(v, batch_rules(k))
+                                        for k, v in batch.items()}, sharder=sh)
             res["logit_gap"] = _gap(full(slogits).numpy(), logits.numpy())
+            # the prefill's cache written at offset 0 of a serve.seq_len one
+            # (a KV cache takes the prompt's prefix, a recurrent state whole)
             big = m.init_cache(tok.shape[0], serve.seq_len)
-            for n in big:
-                big[n][:, :, :S] = cache[n]
-            ref_cache = {n: v.clone() for n, v in big.items()}
+            for dst, src in zip(tree_leaves(big), tree_leaves(cache)):
+                dst[tuple(slice(0, n) for n in src.shape)] = src
+            ref_cache = tree_map(torch.clone, big)
             dcache = sh.distribute(big, m.cache_rules())
-            # the stacked cache is (L, B, S, Hkv, hd)
-            dims = {1: "batch", 2: "seq", 3: "heads"}
-            res["cache_split"] = [dims.get(pl.dim, "none") if pl.is_shard() else "none"
-                                  for pl in dcache["k"].placements]
+            # per cache leaf (sorted keys): is it split over the model axis?
+            res["model_split"] = [leaf.placements[1].is_shard() for leaf in tree_leaves(dcache)]
+            if "k" in dcache:   # the stacked cache is (L, B, S, Hkv, hd)
+                dims = {1: "batch", 2: "seq", 3: "heads"}
+                res["cache_split"] = [dims.get(pl.dim, "none") if pl.is_shard() else "none"
+                                      for pl in dcache["k"].placements]
             nxt = logits[:, -1].argmax(-1, keepdim=True)
             for i in range(steps):
                 pos = torch.tensor(S + i)
@@ -129,8 +152,8 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
                 res["logit_gap"] = max(res["logit_gap"], _gap(slg.numpy(), lg.numpy()))
                 res["tokens_equal"] &= bool((slg.argmax(-1) == lg.argmax(-1)).all())
                 nxt = lg[:, -1].argmax(-1, keepdim=True)
-            res["cache_gap"] = max(_gap(full(dcache[n]).numpy(), ref_cache[n].numpy())
-                                   for n in ref_cache)
+            res["cache_gap"] = max(_gap(full(d).numpy(), r.numpy())
+                                   for d, r in zip(tree_leaves(dcache), tree_leaves(ref_cache)))
         return res
 
     t0 = time.perf_counter()
@@ -141,6 +164,22 @@ def _worker(rank: int, data_dir: str, out_path: str) -> None:
     tp = dataclasses.replace(olmoe, moe=dataclasses.replace(olmoe.moe, expert_parallel=False))
     out["olmoe-tp"] = decode_case("olmoe-1b-7b", tp, 2)
     out["zamba2-2.7b"] = train_case("zamba2-2.7b", False)
+    out["zamba2-2.7b"].update(decode_case("zamba2-2.7b", get_reduced("zamba2-2.7b"), 4))
+    # xLSTM's float32 gradients round apart by more than TOL between the
+    # sharded and unsharded orders of summation (the unsharded path alone
+    # is as far from float64 weights and activations): its gradients are
+    # held within TOL with float64 weights and activations (the cell states
+    # stay float32, as the reference keeps them), and in float32 against
+    # the witness of the unsharded float32 path's own gap to float64
+    out["xlstm-1.3b"] = train_case("xlstm-1.3b", True)
+    out["xlstm-1.3b"].update(decode_case("xlstm-1.3b", get_reduced("xlstm-1.3b"), 4))
+    out["xlstm-1.3b-float64"] = train_case("xlstm-1.3b", True, "float64")
+    out["xlstm-1.3b"]["float32_gap"] = max(
+        _gap(a, b) for a, b in zip(unsharded_grads["xlstm-1.3b", "float32"],
+                                   unsharded_grads["xlstm-1.3b", "float64"]))
+    for arch in ("whisper-large-v3", "qwen2-moe-a2.7b"):
+        out[arch] = train_case(arch, True)
+        out[arch].update(decode_case(arch, get_reduced(arch), 4))
     out["seconds"] = time.perf_counter() - t0
     if rank == 0:
         with open(out_path, "w") as f:
@@ -161,16 +200,19 @@ def _write_inputs(data_dir):
 
     losses = {}
     rng = np.random.default_rng(0)
-    for i, arch in enumerate(("internlm2-20b", "olmoe-1b-7b", "zamba2-2.7b")):
+    for i, arch in enumerate(ARCHS):
         jcfg = jax_reduced(arch)
         jm = jax_build(jcfg)
         jp = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(i)))
-        tokens = rng.integers(0, jcfg.vocab_size, (4, 16), dtype=np.int32)
+        batch = {"tokens": rng.integers(0, jcfg.vocab_size, (4, 16), dtype=np.int32)}
+        if jcfg.encdec is not None:
+            batch["frames"] = rng.standard_normal(
+                (4, jcfg.encdec.encoder_frames, jcfg.d_model)).astype(np.float32)
         flat = {}
         for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
             flat["p/" + "/".join(str(k.key) for k in path)] = leaf
-        np.savez(os.path.join(data_dir, f"{arch}.npz"), tokens=tokens, **flat)
-        batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+        np.savez(os.path.join(data_dir, f"{arch}.npz"), **batch, **flat)
+        batch["labels"] = np.roll(batch["tokens"], -1, axis=1)
         losses[arch] = float(jm.loss(jp, batch)[0])
     return losses
 
@@ -223,7 +265,49 @@ def test_zamba2_loss(run):
     assert abs(z["sharded_loss"] - z["loss"]) <= TOL * abs(z["loss"])
 
 
-@pytest.mark.parametrize("arch", ["internlm2-20b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-large-v3", "qwen2-moe-a2.7b"])
+def test_more_families_loss(run, arch):
+    res = run[0][arch]
+    assert abs(res["sharded_loss"] - res["loss"]) <= TOL * abs(res["loss"]), res
+
+
+@pytest.mark.parametrize("case,grads", [("xlstm-1.3b-float64", 21), ("whisper-large-v3", 32),
+                                        ("qwen2-moe-a2.7b", 17)])
+def test_more_families_every_gradient(run, case, grads):
+    res = run[0][case]
+    assert abs(res["sharded_loss"] - res["loss"]) <= TOL * abs(res["loss"]), res
+    assert res["grads"] == grads and res["grad_gap"] <= TOL, res
+
+
+def test_xlstm_float32_gradients_within_float32_rounding(run):
+    """The sharded float32 gradients against the unsharded ones, no farther
+    apart than twice the unsharded float32 path's own distance from its
+    float64 gradients on the same weights and batch (readings: 1.19e-5
+    against 1.33e-5); that witness itself stays under 5e-5."""
+    res = run[0]["xlstm-1.3b"]
+    assert res["grads"] == 21, res
+    assert res["float32_gap"] <= 5e-5, res
+    assert res["grad_gap"] <= 2 * res["float32_gap"], res
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b", "whisper-large-v3",
+                                  "qwen2-moe-a2.7b"])
+def test_more_families_prefill_and_decode(run, arch):
+    """Every cache leaf split over the model axis: zamba2's Mamba2 states
+    (h, conv) and shared-attention KV, whisper's self and cross caches,
+    qwen2-moe's KV cache (by its sequence, as internlm2's), and xLSTM's
+    states but the mLSTM stabiliser m, which the cache rules replicate."""
+    res = run[0][arch]
+    assert res["logit_gap"] <= TOL and res["tokens_equal"] and res["cache_gap"] <= TOL, res
+    split = res["model_split"]
+    if arch == "xlstm-1.3b":   # leaves: mlstm (C, n, m, conv), slstm (5)
+        assert split == [True, True, False] + [True] * 6, res
+    else:
+        assert all(split), res
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "zamba2-2.7b", "xlstm-1.3b",
+                                  "whisper-large-v3", "qwen2-moe-a2.7b"])
 def test_sharded_loss_matches_the_reference(run, arch):
     res, ref = run
     assert abs(res[arch]["sharded_loss"] - ref[arch]) <= 1e-4 * abs(ref[arch])
