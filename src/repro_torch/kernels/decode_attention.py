@@ -32,10 +32,14 @@ What the design does about it:
 :func:`decode_attention_q8` reads the reference's int8 ``kv_quant`` cache
 (``repro/models/layers.py:269-301``): int8 K/V and one float32 scale per
 (sequence, position, kv head) vector, half the bf16 cache's bytes plus the
-scales (its bound).  The same kernel takes the int8 rows (16 a ``cp.async``)
-and their scales into a ring of their own and widens each tile in shared
-memory to the compute dtype as the reference dequantizes,
-``dtype(x) * dtype(scale)``, before the unchanged body consumes it.
+scales (its bound).  With a bf16 query the int8 rows (16 a ``cp.async``)
+and their scales stream through a 2-stage ring of 256 keys (8 warps) and
+stay int8 in shared memory: each lane turns its bytes into bf16 ``mma``
+fragments in registers (exact: |x| <= 128), in an order of d that lets it
+read contiguous bytes, and the scales multiply score columns (k_scale) and
+p before p's bf16 rounding (v_scale), outside the products.  A float32 query
+widens each tile in shared memory to float32 as the reference dequantizes,
+``x * scale``, before the CUDA-core body consumes it.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 7 + [_L] * 12 + [_P, _I, _P],
     "ham_decode_attention_q8":
         [_P] * 7 + [_I] * 7 + [_L] * 18 + [_P, _I, _P],
+    "ham_decode_attention_q8_resources": [_I, _I, _P, _P, _I],
 }
 
 #: cluster sizes the kernel takes (portable: at most 8 blocks a cluster)
@@ -86,6 +91,18 @@ def num_splits(groups: int) -> int:
         if groups * s >= TARGET_BLOCKS:
             return s
     return SPLITS[-1]
+
+
+def q8_resources(d: int, dtype, device: int = 0) -> dict:
+    """The int8 variant's launch at head_dim ``d`` and query ``dtype`` on
+    CUDA device ``device``: its dynamic shared memory a block (bytes) and
+    the blocks of it an SM holds."""
+    lib = _build.library("decode_attention", _SIGNATURES)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ham_decode_attention_q8_resources(
+        d, _build.DTYPE_CODES[dtype], ctypes.addressof(smem), ctypes.addressof(blocks), device)
+    _build.check(lib, err, "decode_attention_q8 resources")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def decode_attention_lse_plain(q, k, lengths):
@@ -139,10 +156,12 @@ def decode_attention_q8_plain(q, k, v, k_scale, v_scale, lengths, lse=None):
 def decode_attention_q8(q, k, v, k_scale, v_scale, lengths, lse=None):
     """:func:`decode_attention` over an int8 cache: q (B, Hkv, qpk, d)
     float32 or bf16; k/v int8 (B, Hkv, S, d), any strides with a unit last
-    dim; k_scale/v_scale float32 (B, Hkv, S, 1), any strides.  K and V are
-    dequantized to q's dtype as the reference does, ``dtype(x) *
-    dtype(scale)``.  Returns (B, Hkv, qpk, d); ``lse`` as for
-    :func:`decode_attention`.
+    dim; k_scale/v_scale float32 (B, Hkv, S, 1), any strides.  The plain
+    version dequantizes K and V to q's dtype as the reference does,
+    ``dtype(x) * dtype(scale)``; the bf16 kernel applies the bf16-rounded
+    scales to the scores' columns and to p instead (one rounding less), and
+    is held to the plain version within the bf16 tolerance.  Returns (B,
+    Hkv, qpk, d); ``lse`` as for :func:`decode_attention`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
