@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core.device_table import DeviceHandlerTable
 from repro_torch.core.future import Future
+from repro_torch.core.trace import span
 from repro_torch.models.api import resolve_device, tree_map
 
 
@@ -267,13 +268,15 @@ class ServingEngine:
                 if all(r is None for r in self.slot_req):
                     break
             return out
-        self.payload["temp"].fill_(0.0)
-        toks = []
-        for _ in range(k):
-            self.payload = self.dispatch(self.key_greedy, self.payload)
-            toks.append(self.payload["tokens"][:, 0])
+        with span("engine.dispatch", k, cpu=True):
+            self.payload["temp"].fill_(0.0)
+            toks = []
+            for _ in range(k):
+                self.payload = self.dispatch(self.key_greedy, self.payload)
+                toks.append(self.payload["tokens"][:, 0])
+            stacked = torch.stack(toks)
         self.steps_dispatched += k
-        toks_np = torch.stack(toks).cpu().numpy()  # (k, B): one host transfer
+        toks_np = stacked.cpu().numpy()  # (k, B): one host transfer
         emitted: list[tuple[int, int]] = []
         for i in range(k):
             emitted.extend(self._emit(toks_np[i], active))
@@ -554,16 +557,15 @@ class ClusterServingEngine:
             and len(self._transcripts.get(rid, ()))
             >= self._budget.get(rid, 1 << 30)
         ):
-            self._finalize_locked(rid, STREAM_DONE, now)
+            self._finalize_locked(rid, STREAM_DONE)
         elif status not in (STREAM_TOKEN, STREAM_DONE):
-            self._finalize_locked(rid, status, now)
+            self._finalize_locked(rid, status)
 
-    def _finalize_locked(self, rid: int, status: int, now: float) -> None:
+    def _finalize_locked(self, rid: int, status: int) -> None:
         self._done[rid] = status
         self._placed.pop(rid, None)
         self._admitting.pop(rid, None)
         self._cancel_req.pop(rid, None)
-        self._events.setdefault(rid, {}).setdefault("t_done", now)
         self._end_q.append(rid)
 
     def _recover_node(self, node: int) -> None:
@@ -592,16 +594,16 @@ class ClusterServingEngine:
             return
         now = time.monotonic()
         if rid in self._cancel_req:
-            self._finalize_locked(rid, self._cancel_req[rid], now)
+            self._finalize_locked(rid, self._cancel_req[rid])
             return
         done_toks = self._transcripts.get(rid, [])
         remaining = self._budget[rid] - len(done_toks)
         if remaining <= 0:
-            self._finalize_locked(rid, STREAM_DONE, now)
+            self._finalize_locked(rid, STREAM_DONE)
             return
         expires = self._expires.get(rid)
         if expires is not None and now >= expires:
-            self._finalize_locked(rid, STREAM_EXPIRED, now)
+            self._finalize_locked(rid, STREAM_EXPIRED)
             return
         self._gen[rid] += 1
         ev = self._events.setdefault(rid, {})
@@ -664,7 +666,7 @@ class ClusterServingEngine:
                         exp = self._expires.get(rid)
                         if exp is not None and now >= exp:
                             del self._pending[i]
-                            self._finalize_locked(rid, STREAM_EXPIRED, now)
+                            self._finalize_locked(rid, STREAM_EXPIRED)
                             self._wd.notify_all()
 
     def _collect_admits_locked(self) -> list:
@@ -729,8 +731,6 @@ class ClusterServingEngine:
         )
 
     def _on_admit_done(self, fut, rid: int, node: int, gen: int) -> None:
-        import time
-
         try:
             fut.get(0)
         except Exception as e:  # noqa: BLE001 — classified below
@@ -741,8 +741,6 @@ class ClusterServingEngine:
             if self._admitting.pop(rid, None) is not None \
                     and rid not in self._done and self._gen.get(rid) == gen:
                 self._placed[rid] = node
-                self._events.setdefault(rid, {}).setdefault(
-                    "t_admit", time.monotonic())
             self._wd.notify_all()
 
     def _admit_failed(self, rid: int, node: int, exc: Exception) -> None:
@@ -755,10 +753,8 @@ class ClusterServingEngine:
                 self._wd.notify_all()
                 return
             if self.pool.is_alive(node) and node in self._engine_keys:
-                import time
-
                 self._errors[rid] = exc
-                self._finalize_locked(rid, -1, time.monotonic())
+                self._finalize_locked(rid, -1)
             else:
                 self._requeue_locked(rid)
             self._wd.notify_all()
@@ -809,7 +805,7 @@ class ClusterServingEngine:
             self._done.pop(rid, None)
             self._errors.pop(rid, None)
             self._transcripts[rid] = []
-            self._events[rid] = {"t_submit": now}
+            self._events[rid] = {}
             self._gen[rid] = self._gen.get(rid, -1) + 1
             self._budget[rid] = int(req.max_new_tokens)
             self._temp[rid] = float(req.temperature)
@@ -825,8 +821,6 @@ class ClusterServingEngine:
         """Cancel a request: it leaves the running batch at the worker's
         next step, frees its slot, and its session ends.  Returns False
         when the request already finished."""
-        import time
-
         from repro_torch.core.closure import f2f
         from repro_torch.core.errors import OffloadError
         from repro_torch.core.flags import STREAM_CANCELLED
@@ -840,7 +834,7 @@ class ClusterServingEngine:
             for i, q in enumerate(self._pending):
                 if q.rid == rid:  # still queued host-side: shed locally
                     del self._pending[i]
-                    self._finalize_locked(rid, status, time.monotonic())
+                    self._finalize_locked(rid, status)
                     self._wd.notify_all()
                     return True
             self._cancel_req[rid] = status

@@ -49,6 +49,7 @@ from repro_torch.core.flags import (
     STREAM_DONE,
     STREAM_TOKEN,
 )
+from repro_torch.core.trace import span
 
 __all__ = ["WorkerDecodeLoop"]
 
@@ -87,8 +88,7 @@ class WorkerDecodeLoop:
         #: rid -> {gen, seq, remaining, expires} for requests in the batch
         self._live: dict[int, dict] = {}
         self._stop = False
-        self.stats = {"steps": 0, "tokens": 0, "frames": 0, "parks": 0,
-                      "expired": 0, "cancelled": 0}
+        self.stats = {"frames": 0, "parks": 0, "expired": 0, "cancelled": 0}
         self._thread = threading.Thread(
             target=self._run, name=f"ham-decode-loop{name}", daemon=True
         )
@@ -210,9 +210,10 @@ class WorkerDecodeLoop:
                         self._admits.extendleft(reversed(admits[i:]))
                     break
                 slot = free_now[0]
-                eng.admit(Request(prompt=prompt, max_new_tokens=max_new,
-                                  temperature=temp, rid=rid), slot)
-                first = int(eng.outputs[rid][0])
+                with span("serve.admit", rid=rid):
+                    eng.admit(Request(prompt=prompt, max_new_tokens=max_new,
+                                      temperature=temp, rid=rid), slot)
+                    first = int(eng.outputs[rid][0])
                 live = {
                     "gen": gen, "seq": 1, "remaining": max_new - 1,
                     "expires": now + deadline_s if deadline_s > 0 else None,
@@ -226,41 +227,42 @@ class WorkerDecodeLoop:
                 else:
                     self._live[rid] = live
                     status = STREAM_TOKEN
-                self.stats["tokens"] += 1
                 calls.append(self._stream_call(f2f, rid, gen, 0, first,
                                                status))
             # 3. one fused block of batched decode steps ([] when empty):
             # per-dispatch overhead amortised over the whole block
             emitted = eng.step_many(self._block)
-            if emitted:
-                self.stats["steps"] += 1
-            # group each request's tokens (emitted is step-major, so the
-            # per-request order is already ascending) and ship ONE
-            # _serve/stream_block segment per request per block
-            by_rid: dict[int, list[int]] = {}
-            for rid, tok in emitted:
-                by_rid.setdefault(rid, []).append(int(tok))
-            from repro_torch.serve.handlers import STREAM_BLOCK_MAX
+            with span("serve.egress", cpu=True):
+                self._egress(f2f, emitted, calls)
 
-            for rid, toks in by_rid.items():
-                live = self._live.get(rid)
-                if live is None:
-                    continue  # evicted mid-iteration
-                live["remaining"] -= len(toks)
-                done = live["remaining"] <= 0
-                self.stats["tokens"] += len(toks)
-                for i in range(0, len(toks), STREAM_BLOCK_MAX):
-                    chunk = toks[i : i + STREAM_BLOCK_MAX]
-                    last = i + len(chunk) >= len(toks)
-                    status = STREAM_DONE if (done and last) else STREAM_TOKEN
-                    calls.append(self._stream_block_call(
-                        f2f, rid, live["gen"], live["seq"], chunk, status))
-                    live["seq"] += len(chunk)
-                if done:
-                    self._live.pop(rid, None)
-                    self._tombstones.append((rid, live["gen"]))
-            if calls:
-                self._flush(calls)
+    def _egress(self, f2f, emitted: list, calls: list) -> None:
+        """Group each request's tokens (``emitted`` is step-major, so the
+        per-request order is already ascending), add ONE
+        ``_serve/stream_block`` segment per request per block to ``calls``
+        and ship them all."""
+        from repro_torch.serve.handlers import STREAM_BLOCK_MAX
+
+        by_rid: dict[int, list[int]] = {}
+        for rid, tok in emitted:
+            by_rid.setdefault(rid, []).append(int(tok))
+        for rid, toks in by_rid.items():
+            live = self._live.get(rid)
+            if live is None:
+                continue  # evicted mid-iteration
+            live["remaining"] -= len(toks)
+            done = live["remaining"] <= 0
+            for i in range(0, len(toks), STREAM_BLOCK_MAX):
+                chunk = toks[i : i + STREAM_BLOCK_MAX]
+                last = i + len(chunk) >= len(toks)
+                status = STREAM_DONE if (done and last) else STREAM_TOKEN
+                calls.append(self._stream_block_call(
+                    f2f, rid, live["gen"], live["seq"], chunk, status))
+                live["seq"] += len(chunk)
+            if done:
+                self._live.pop(rid, None)
+                self._tombstones.append((rid, live["gen"]))
+        if calls:
+            self._flush(calls)
 
     def _flush(self, calls: list) -> None:
         """Ship this iteration's stream calls as fused oneways: msg_id 0

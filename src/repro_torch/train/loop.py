@@ -19,6 +19,7 @@ import time
 
 from repro_torch.ckpt.store import CheckpointStore
 from repro_torch.core.registry import default_registry
+from repro_torch.core.trace import span
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, as_tensors, batch_for_model
 from repro_torch.models.api import batch_rules, build_model
 from repro_torch.optim import adamw
@@ -122,9 +123,10 @@ class Trainer:
             if self._stop_requested:
                 break
             batch = self.batch(self.step)
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch
-            )
+            with span("train.step", device=self.device):
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch
+                )
             self.step += 1
             last = {k: float(v) for k, v in metrics.items()}
             last["step"] = self.step

@@ -22,6 +22,7 @@ import contextlib
 import torch
 
 from repro_torch.core.dtensor import is_dtensor
+from repro_torch.core.trace import span
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.compression import ef_compress_tree, ef_decompress_tree
@@ -79,7 +80,7 @@ def build_train_step(model, opt_cfg: adamw.AdamWConfig, sharder=None,
         loss, metrics, grads = value_and_grad(model, params, batch, sharder)
         if sharder is not None:
             grads = _placed(grads, params, grad_shardings)
-        with _on_mesh(sharder):
+        with _on_mesh(sharder), span("train.optimizer", device=model.device):
             if opt_cfg.reduce_dtype is not None:
                 # the reference's reduced-precision gradient reduction
                 rd = getattr(torch, opt_cfg.reduce_dtype)
