@@ -58,8 +58,11 @@ Phases, in order; any failure raises and exits non-zero:
 5. serve internlm2-20b, olmoe-1b-7b, qwen2-moe-a2.7b, xlstm-1.3b and
    zamba2-2.7b, each at its full published config in bfloat16 (seeded random
    weights): 16 greedy requests (prompts of 64–1024 tokens, 64–256 for
-   xlstm-1.3b) through ``run()``, a profiled window of decode steps, a ``step_many(16)``
-   block against 16 ``step()`` calls from the same state, a profiled window
+   xlstm-1.3b) through ``run()``, a profiled window of decode steps, two
+   ``step_many(16)`` blocks replaying the greedy step captured as a CUDA graph
+   (the first captures it after one eager step) against 16 eager ``step()``
+   calls from the same state (token-identical, exact decode launches, the
+   capture's time and pool bytes, a profiled graphed block), a profiled window
    of 1024-token admissions (one for xlstm-1.3b, whose sLSTM prefill is a
    host loop of ~150 k small launches), and one sampled request, with the
    kernels' launch counters zeroed before and checked after each model;
@@ -67,8 +70,8 @@ Phases, in order; any failure raises and exits non-zero:
    counters zeroed before and checked after: zamba2-2.7b with the
    long-context window 4096 served (8 slots, 8 requests of 3900–4000
    tokens, 256 new tokens each, so every request wraps the ring;
-   ``step_many(16)`` against 16 ``step()`` calls with every lane crossing
-   the wrap), internlm2-20b (48 layers) decoded 64 steps over the int8
+   graphed ``step_many(16)`` against 16 ``step()`` calls with every lane
+   crossing the wrap), internlm2-20b (48 layers) decoded 64 steps over the int8
    cache beside the bf16 cache (logits within 0.05 of its max), and
    whisper-large-v3 (32 + 32 layers, 8 x 1500 frames, 64 greedy steps) and
    internvl2-76b (full width, 2 of 80 layers; 256 patches, 32 greedy
@@ -79,7 +82,8 @@ Phases, in order; any failure raises and exits non-zero:
    and worker-driven on one 4-slot worker, on 8 requests of 32 new
    tokens, each token-identical to one 4-slot ``ServingEngine`` on the same
    requests; exact decode and flash launch counts, tokens/s, TTFT and host
-   RPCs per emitted token (below 0.1 worker-driven);
+   RPCs per emitted token (below 0.1 worker-driven), each worker-driven
+   replica's decode blocks replaying its captured greedy step;
 7. process fabrics (host code; the reference's non-smoke sizes): 7a runs
    right after phase 1, before this process holds a CUDA context, on forked
    workers (and fresh interpreters): the paper's Fig. 3 analogue (median
@@ -2104,15 +2108,8 @@ def serve(torch, arch: str) -> dict:
     for slot, r in enumerate(block):
         eng.admit(r, slot)
     profile = profile_window(torch, eng.step, 4)
-    snap = _snapshot(eng)
-    blk = eng.step_many(16)
-    got = {r.rid: list(eng.outputs[r.rid]) for r in block}
-    _restore(eng, snap)
-    seq = []
-    for _ in range(16):
-        seq.extend(eng.step())
-    want = {r.rid: list(eng.outputs[r.rid]) for r in block}
-    check(blk == seq and got == want, "step_many(16) differs from 16 step() calls")
+    L_attn = serve_launches(cfg, 1, 0)["decode_attention"]
+    graphed = graphed_blocks(torch, eng, block, arch, L_attn)
     while any(r is not None for r in eng.slot_req):
         eng.step()
 
@@ -2160,6 +2157,7 @@ def serve(torch, arch: str) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile_decode_step": profile,
         "profile_admission_1024": admit_profile,
+        "graphed_block": graphed,
     }
     print(f"served {cfg.name}: {n_params / 1e9:.2f} B params, {stats}")
     return stats
@@ -2224,15 +2222,7 @@ def serve_windowed(torch) -> dict:
     for slot, r in enumerate(block):
         eng.admit(r, slot)
     profile = profile_window(torch, eng.step, 4)
-    snap = _snapshot(eng)
-    blk = eng.step_many(16)
-    got = {r.rid: list(eng.outputs[r.rid]) for r in block}
-    _restore(eng, snap)
-    seq = []
-    for _ in range(16):
-        seq.extend(eng.step())
-    check(blk == seq and got == {r.rid: list(eng.outputs[r.rid]) for r in block},
-          "windowed zamba2: step_many(16) differs from 16 step() calls")
+    graphed = graphed_blocks(torch, eng, block, "windowed zamba2", apps)
     while any(r is not None for r in eng.slot_req):
         eng.step()
     full = [t for t, n in step_s if n == WINDOWED["slots"]]
@@ -2249,7 +2239,7 @@ def serve_windowed(torch) -> dict:
         "decode_step_ms_p90_8_active": 1e3 * float(np.percentile(full, 90)),
         "decode_step_n_8_active": len(full), "steps_dispatched": steps, "admissions": n_req,
         "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile_decode_step": profile,
+        "profile_decode_step": profile, "graphed_block": graphed,
     }
     print(f"served {stats['model']} past the ring's wrap ({wrapped} of {n_req} requests "
           f"wrapped): {stats}")
@@ -2413,6 +2403,80 @@ def decode_vlm(torch, steps: int = 32) -> dict:
     return stats
 
 
+def graphed_blocks(torch, eng, block, label: str, attn_layers: int) -> dict:
+    """``step_many(16)`` as CUDA-graph replays against 16 eager ``step()``
+    calls from one state of ``eng`` (every slot greedy, ``block`` admitted):
+    the engine's first block captures the greedy step after one eager step
+    and replays 15, a second block from the same state replays all 16.
+    Both token-identical to the eager steps, decode attention launched
+    exactly ``attn_layers`` x 16 times a block, every block on the replay
+    path; then a graphed block under the profiler must show the graph's
+    decode-attention kernels among the device's events.  Returns the
+    capture's wall time, the graph's pool bytes and the profiled block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trace
+    from repro_torch.kernels import decode_attention as dec
+
+    check(eng.key_greedy not in eng.graphs, f"{label}: a graph was captured before the check")
+    snap = _snapshot(eng)
+    spans0 = trace.snapshot()
+    blocks = []
+    for i in range(2):
+        if i:
+            _restore(eng, snap)
+            spans1 = trace.snapshot()   # the second block replays every step
+        before = dec.launches
+        blk = eng.step_many(16)
+        torch.cuda.synchronize()
+        blocks.append((blk, {r.rid: list(eng.outputs[r.rid]) for r in block},
+                       dec.launches - before))
+    end = trace.snapshot()
+    spans = {k: v - spans0.get(k, 0) for k, v in end.items()}
+    _restore(eng, snap)
+    seq = []
+    for _ in range(16):
+        seq.extend(eng.step())
+    want = {r.rid: list(eng.outputs[r.rid]) for r in block}
+    for i, (blk, got, _) in enumerate(blocks):
+        check(blk == seq and got == want,
+              f"{label}: graphed step_many(16) (block {i + 1}) differs from 16 step() calls")
+    check([n for _, _, n in blocks] == [16 * attn_layers] * 2,
+          f"{label}: graphed blocks launched decode attention {[n for _, _, n in blocks]} "
+          f"times, not {16 * attn_layers} each")
+    check((spans.get("span.engine.capture.count"), spans.get("span.engine.replay.count"),
+           spans.get("span.engine.replay.units")) == (1, 2, 31),
+          f"{label}: capture/replay spans {spans}")
+    g = eng.graphs[eng.key_greedy].graph
+    pool = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(g.pool())]
+    # one more graphed block, profiled: the replays' kernels are the
+    # device's events (the benchmark's rooflines read them there)
+    snap = _snapshot(eng)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step_many(16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _restore(eng, snap)
+    dev = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+           if e.device_type().name == "CUDA" and not e.is_hidden_event()]
+    n_decode = sum(1 for n, _ in dev if "decode_kernel" in n or "decode_q8" in n)
+    check(n_decode == 16 * attn_layers,
+          f"{label}: the profiler saw {n_decode} decode-attention kernels in a graphed "
+          f"block, not {16 * attn_layers}")
+    out = {"capture_s": spans["span.engine.capture.wall_ns"] / 1e9,
+           "graph_pool_bytes": sum(pool) if pool else None,
+           "dispatch_ms_per_step_replayed": (end["span.engine.dispatch.wall_ns"]
+                                             - spans1["span.engine.dispatch.wall_ns"]) / 1e6 / 16,
+           "profiled_block": {"wall_ms": 1e3 * wall, "device_ops": len(dev),
+                              "device_busy_ms": sum(d for _, d in dev) / 1e6,
+                              "decode_attention_kernels": n_decode}}
+    print(f"{label}: graphed step_many(16) token-identical to 16 step() calls; {out}")
+    return out
+
+
 def profile_window(torch, fn, n: int, windows: int = 1, top: int = 10) -> dict:
     """Device time of ``n`` calls of ``fn`` (decode steps, admissions) under
     ``torch.profiler``: wall time per call, device busy time per call
@@ -2483,7 +2547,8 @@ def _restore(eng, snap):
     tree_map(lambda dst, src: dst.copy_(src), eng.payload["cache"], cache)
     eng.payload["tokens"].copy_(tokens)
     eng.payload["pos"].copy_(pos)
-    eng.slot_req, eng.slot_remaining, eng.outputs = list(slot_req), remaining.copy(), outputs
+    eng.slot_req, eng.slot_remaining = list(slot_req), remaining.copy()
+    eng.outputs = {r: list(t) for r, t in outputs.items()}   # the snapshot serves again
 
 
 def release(torch) -> None:
@@ -2644,6 +2709,10 @@ def cluster_serve(torch) -> dict:
             first = streamed_first(eng) if worker_driven else lockstep_first(eng.sched)
             out, st = drive(mode, replicas, lambda r: eng.run(r, timeout=900), first,
                             eng.sched)
+            # worker-driven decode blocks replay each replica's captured step
+            st["graphed_replicas"] = sum(r.key_greedy in r.graphs for r in replicas)
+            check(st["graphed_replicas"] == (workers if worker_driven else 0),
+                  f"{mode}: {st['graphed_replicas']} of {workers} replicas captured a graph")
         finally:
             eng.close()
         del replicas, eng

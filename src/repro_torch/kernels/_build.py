@@ -124,13 +124,43 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def count(module_name: str, counter: str = "launches") -> None:
-    """Add one to the module's ``counter`` under a lock.  Serving replicas on
+#: the calling thread's withheld counts inside :func:`withheld`
+_WITHHELD = threading.local()
+
+
+def count(module_name: str, counter: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to the module's ``counter`` under a lock.  Serving replicas on
     thread workers launch at once, and a bare ``launches += 1`` on a module
-    global is a read-modify-write that two threads can interleave and lose."""
+    global is a read-modify-write that two threads can interleave and lose.
+    Inside :func:`withheld` the count goes to the block's record instead."""
+    held = getattr(_WITHHELD, "counts", None)
+    if held is not None:
+        held[module_name, counter] = held.get((module_name, counter), 0) + n
+        return
     module = sys.modules[module_name]
     with _COUNT_LOCK:
-        setattr(module, counter, getattr(module, counter) + 1)
+        setattr(module, counter, getattr(module, counter) + n)
+
+
+@contextlib.contextmanager
+def withheld():
+    """Record instead of count the launches this thread makes in the block,
+    as ``{(module name, counter): n}``: a CUDA graph's capture runs nothing,
+    and each replay of the graph adds the record (:func:`add_counts`).
+    Other threads count as usual meanwhile."""
+    counts: dict[tuple[str, str], int] = {}
+    prev = getattr(_WITHHELD, "counts", None)
+    _WITHHELD.counts = counts
+    try:
+        yield counts
+    finally:
+        _WITHHELD.counts = prev
+
+
+def add_counts(counts: dict, times: int = 1) -> None:
+    """Count ``times`` over the launches a :func:`withheld` record holds."""
+    for (module_name, counter), n in counts.items():
+        count(module_name, counter, n * times)
 
 
 def counted(launch):

@@ -25,7 +25,12 @@ Differences from the reference, all forced by PyTorch:
   ``seed`` (the reference threads a ``jax.random`` key through the payload);
   the two streams differ, so only greedy transcripts match the reference;
 * ``step_many(k)`` is a loop of k dispatches whose tokens stay on the
-  device and cross to the host once at the end of the block.
+  device and cross to the host once at the end of the block;
+* the payload's tensors are fixed for the engine's lifetime: every
+  dispatch's result is copied back into them in place, so that on the card
+  a greedy block replays one decode step captured as a CUDA graph
+  (:func:`replays_graph` says when) instead of launching its kernels one
+  by one from Python.
 
 What the reference engine cannot serve is refused with a ``ValueError``
 (serving it would be a feature the reference lacks): a prompt longer than a
@@ -38,14 +43,18 @@ admits tokens only).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.device_table import DeviceHandlerTable
+from repro_torch.core.dtensor import is_dtensor
 from repro_torch.core.future import Future
 from repro_torch.core.trace import span
+from repro_torch.kernels import _build
 from repro_torch.models.api import resolve_device, tree_map
 
 
@@ -125,6 +134,39 @@ def _insert(full, part, axis: int, slot: int) -> None:
     full.select(axis, slot)[tuple(slice(0, n) for n in src.shape)].copy_(src)
 
 
+def _copy_back(payload: dict, result: dict) -> None:
+    """Write a dispatch's result into the payload's fixed tensors in place;
+    a leaf the branch already updated in place is the same tensor."""
+    for name, dst in payload.items():
+        tree_map(lambda d, r: None if r is d else d.copy_(r), dst, result[name])
+
+
+def replays_graph(device: torch.device, slot_req, payload: dict) -> bool:
+    """Whether a decode block replays the captured greedy step: the engine
+    runs on a CUDA device, every active slot decodes greedily, and every
+    payload leaf is a plain tensor (a DTensor mesh step stays eager)."""
+    return (device.type == "cuda"
+            and all(r is None or r.temperature <= 0 for r in slot_req)
+            and not any(is_dtensor(x) for x in pytree.tree_leaves(payload)))
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One decode step of one key captured as a CUDA graph over the
+    payload's fixed tensors (``leaves``, checked before each block), and
+    the kernel launches the step makes, added to the kernels' counters at
+    each replay (``_build.withheld`` record)."""
+
+    graph: Any
+    leaves: list
+    launches: dict
+
+
+#: one capture at a time in the process (``torch.cuda.graph`` synchronizes
+#: the device and empties the allocator's cache on entry)
+_CAPTURE_LOCK = threading.Lock()
+
+
 class ServingEngine:
     """Continuous-batching loop on top of the dispatch table.
 
@@ -164,6 +206,8 @@ class ServingEngine:
         self.slot_remaining = np.zeros(num_slots, np.int64)
         self.outputs: dict[int, list[int]] = {}
         self.steps_dispatched = 0
+        #: key -> its captured decode step (CUDA only; see replays_graph)
+        self.graphs: dict[int, StepGraph] = {}
 
     # -- slot admission ----------------------------------------------------------
 
@@ -241,15 +285,60 @@ class ServingEngine:
         temps = max((r.temperature for r in self.slot_req if r is not None),
                     default=0.0)
         self.payload["temp"].fill_(temps)
-        self.payload = self.dispatch(key, self.payload)
+        self._dispatch(key)
         self.steps_dispatched += 1
         if key == self.key_noop:
             return []
         return self._emit(self.payload["tokens"][:, 0].cpu().numpy(), active)
 
+    def _dispatch(self, key: int) -> None:
+        """One eager dispatch, its result copied into the payload."""
+        _copy_back(self.payload, self.dispatch(key, self.payload))
+
+    def _capture(self, key: int) -> StepGraph:
+        """Capture one dispatch of ``key`` (and its copy-back) as a CUDA
+        graph on a stream of the engine's own, after one eager dispatch on
+        that stream (the block's first step: the kernels are built and
+        loaded, and cuBLAS has its workspace there, before capture).  Other
+        threads may use the card meanwhile (``thread_local``).  A failure
+        raises."""
+        cur = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            self._dispatch(key)
+        cur.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, span("engine.capture"), _build.withheld() as launches:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self._dispatch(key)
+        return StepGraph(graph, pytree.tree_leaves(self.payload), launches)
+
+    def _replay(self, key: int, stacked: torch.Tensor) -> None:
+        """The block's steps as replays of the captured step (captured
+        here, after one eager step, on the engine's first such block), each
+        step's tokens copied into ``stacked`` (k, B)."""
+        tokens, first = self.payload["tokens"], 0
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(key)
+            stacked[0].copy_(tokens[:, 0])
+            first = 1
+        if any(a is not b for a, b in zip(g.leaves, pytree.tree_leaves(self.payload),
+                                          strict=True)):
+            raise RuntimeError("the payload's tensors changed since the decode step was "
+                               "captured: a CUDA graph reads the tensors it was captured on")
+        with span("engine.replay", len(stacked) - first):
+            for i in range(first, len(stacked)):
+                g.graph.replay()
+                _build.add_counts(g.launches)
+                stacked[i].copy_(tokens[:, 0])
+
     def step_many(self, k: int) -> list[tuple[int, int]]:
         """Up to ``k`` greedy decode steps as one block: k dispatches whose
-        tokens are stacked on the device and cross to the host once.
+        tokens are stacked on the device and cross to the host once.  Where
+        :func:`replays_graph` holds, the dispatches are replays of the
+        greedy step captured as a CUDA graph.
 
         Semantics match ``k`` sequential :meth:`step` calls: slot lanes are
         independent, so a slot whose budget ends mid-block has its surplus
@@ -270,11 +359,13 @@ class ServingEngine:
             return out
         with span("engine.dispatch", k, cpu=True):
             self.payload["temp"].fill_(0.0)
-            toks = []
-            for _ in range(k):
-                self.payload = self.dispatch(self.key_greedy, self.payload)
-                toks.append(self.payload["tokens"][:, 0])
-            stacked = torch.stack(toks)
+            stacked = torch.empty((k, self.B), dtype=torch.int64, device=self.device)
+            if replays_graph(self.device, self.slot_req, self.payload):
+                self._replay(self.key_greedy, stacked)
+            else:
+                for i in range(k):
+                    self._dispatch(self.key_greedy)
+                    stacked[i].copy_(self.payload["tokens"][:, 0])
         self.steps_dispatched += k
         toks_np = stacked.cpu().numpy()  # (k, B): one host transfer
         emitted: list[tuple[int, int]] = []
