@@ -13,6 +13,7 @@ file changes.
 from __future__ import annotations
 
 import threading
+import time
 
 
 def token_times(engine, rid: int) -> list:
@@ -66,6 +67,18 @@ def loops(engine) -> list:
     from repro_torch.serve.handlers import _NODE_LOOPS
 
     return [_NODE_LOOPS[key] for key in engine._engine_keys.values()]
+
+
+def wait_ended(loops, timeout: float = 120.0) -> None:
+    """Wait until the thread of each decode loop in ``loops`` has ended.
+    ``close`` asks a loop to stop and waits 5 s for it, but a loop stops
+    only after the iteration it is in, whose admissions can take longer;
+    until then it still runs the program on the device."""
+    deadline = time.monotonic() + timeout
+    for loop in loops:
+        loop._thread.join(max(0.0, deadline - time.monotonic()))
+        if loop._thread.is_alive():
+            raise RuntimeError(f"a decode loop still runs {timeout:.0f} s after its engine closed")
 
 
 def replicas(engine) -> list:

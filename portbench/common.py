@@ -22,6 +22,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -155,6 +156,15 @@ def gmm_flops(conf: dict, tokens: int, backward: bool) -> float:
     return (4.0 if backward else 2.0) * rows * conf["hidden_size"] * conf["intermediate_size"]
 
 
+def gmm_bytes(conf: dict, tokens: int, elem: int = 2) -> float:
+    """Bytes one forward grouped-matmul launch of an MoE layer must move:
+    every expert's weights (E d f), and each routed row's input and output
+    (tokens x top-k rows of d + f)."""
+    d, f = conf["hidden_size"], conf["intermediate_size"]
+    rows = tokens * conf["num_experts_per_tok"]
+    return elem * (conf["num_experts"] * d * f + rows * (d + f))
+
+
 def decode_bytes(conf: dict, lengths, elem: int = 2) -> float:
     """Bytes one layer's decode-attention launch needs: the keys and values
     of each active sequence's cached length, its query read and its output
@@ -280,6 +290,36 @@ def load_json(relpath: str) -> dict:
 
 def limits(workload: str) -> dict:
     return json.loads((HERE / "limits" / f"{workload}.json").read_text())
+
+
+#: what the drivers call of a reference module (its contract:
+#: ``portbench/README.md``)
+REFERENCE_FUNCTIONS = ("make_weights", "logits", "fp8_matmul", "leaf_paths", "train",
+                       "train_loss", "change_norm", "relative_diffs")
+_REFERENCES: dict = {}
+
+
+def reference(conf: dict):
+    """The plain reference module of a configuration: the file its
+    ``reference`` key names, relative to the checkout's root, loaded once.
+    A module that lacks a function of ``REFERENCE_FUNCTIONS`` is refused
+    here, by name."""
+    path = (ROOT / conf["reference"]).resolve()
+    mod = _REFERENCES.get(path)
+    if mod is None:
+        name = "portbench_reference_" + "".join(c if c.isalnum() else "_"
+                                                for c in str(path))
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        missing = [f for f in REFERENCE_FUNCTIONS if not callable(getattr(mod, f, None))]
+        if missing:
+            del sys.modules[name]
+            raise ImportError(f"reference {conf['reference']}: no function "
+                              f"{', '.join(missing)} (portbench/README.md)")
+        _REFERENCES[path] = mod
+    return mod
 
 
 def correct(checks: dict) -> bool:

@@ -15,15 +15,21 @@ COUNTERS = {
 
 
 def model_config(conf: dict):
-    """The program's ``ModelConfig`` of a configuration file."""
-    from repro_torch.models.config import ModelConfig, MoEConfig
+    """The program's ``ModelConfig`` of a configuration file: the decoder
+    family's keys mapped onto its fields, then the file's ``"program"``
+    object applied over them, key by key (``moe``, ``ssm``, ``xlstm``,
+    ``encdec`` and ``vlm`` are objects of their own dataclass, applied over
+    the mapped one where there is one).  A key the dataclass lacks raises."""
+    import dataclasses
+
+    from repro_torch.models import config as C
 
     moe = None
     if "num_experts" in conf:
-        moe = MoEConfig(num_experts=conf["num_experts"], top_k=conf["num_experts_per_tok"],
-                        d_ff_expert=conf["intermediate_size"],
-                        capacity_factor=conf["capacity_factor"], expert_parallel=True)
-    return ModelConfig(
+        moe = C.MoEConfig(num_experts=conf["num_experts"], top_k=conf["num_experts_per_tok"],
+                          d_ff_expert=conf["intermediate_size"],
+                          capacity_factor=conf["capacity_factor"], expert_parallel=True)
+    fields = dict(
         name=conf["name"], family="moe" if moe else "dense",
         num_layers=conf["num_hidden_layers"], d_model=conf["hidden_size"],
         num_heads=conf["num_attention_heads"], num_kv_heads=conf["num_key_value_heads"],
@@ -32,6 +38,25 @@ def model_config(conf: dict):
         norm_eps=conf["rms_norm_eps"], tie_embeddings=conf["tie_word_embeddings"], moe=moe,
         dtype=conf["compute_dtype"], param_dtype=conf["param_dtype"], remat=conf["remat"],
     )
+    nested = {"moe": C.MoEConfig, "ssm": C.SSMConfig, "xlstm": C.XLSTMConfig,
+              "encdec": C.EncDecConfig, "vlm": C.VLMConfig}
+    for key, value in conf.get("program", {}).items():
+        _known(C.ModelConfig, key, "program")
+        if key in nested and value is not None:
+            for sub in value:
+                _known(nested[key], sub, f"program.{key}")
+            base = fields.get(key)
+            value = (dataclasses.replace(base, **value) if base is not None
+                     else nested[key](**value))
+        fields[key] = value
+    return C.ModelConfig(**fields)
+
+
+def _known(cls, key: str, where: str) -> None:
+    import dataclasses
+
+    if key not in {f.name for f in dataclasses.fields(cls)}:
+        raise ValueError(f"{where}.{key}: {cls.__name__} has no field {key!r}")
 
 
 def counters(sched=None, loops=()) -> dict:

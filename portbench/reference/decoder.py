@@ -18,11 +18,12 @@ records (``departures``) are followed here, so that both compute one model:
 top-k weights renormalised, capacity-bounded expert groups.
 
 Routing is a discrete choice, and near-tied experts swap under any change
-of rounding.  So a training comparison can hand this model the experts
-that the program chose (``routes``), as a served model's tokens are handed
-to it: each choice is judged against this model's own router
-(``route_gap``, the widest gap by which a chosen expert's router logit lies
-below the k-th best), and the gradients are then those of one routing.
+of rounding.  So a comparison can hand this model the experts that the
+program chose (``routes``; a training step's, or a served sequence's in
+the program's forward pass), as a served model's tokens are handed to it:
+each choice is judged against this model's own router (``route_gap``, the
+widest gap by which a chosen expert's router logit lies below the k-th
+best), and the logits and gradients are then those of one routing.
 
 Every matrix product goes through ``mm``: :func:`matmul` (float32) for the
 reference, :func:`fp8_matmul` (operands rounded to float8 e4m3 with one
@@ -257,7 +258,7 @@ def moe(x, w, m, mm, route=None, seen=None):
     if route is None:
         top_w, top_e = torch.topk(probs, k, dim=-1)
     else:
-        top_e = route.to(device=x.device, dtype=torch.long)
+        top_e = route.to(device=x.device, dtype=torch.long).reshape(G, Tg, k)
         top_w = probs.gather(-1, top_e)
         if seen is not None:
             with torch.no_grad():
@@ -300,17 +301,32 @@ def block(x, w, m, mm, route=None, seen=None):
 
 
 @torch.no_grad()
-def logits(conf: dict, seed: int, seqs: list, device, dtype, mm=matmul) -> list:
+def logits(conf: dict, seed: int, seqs: list, device, dtype, mm=matmul, routes=None,
+           seen=None) -> list:
     """float32 logits (S, V) of each token sequence in ``seqs`` (1-D int
     tensors), every sequence whole, no cache; the weights made in ``dtype``
-    (as served) and widened, one layer at a time."""
+    (as served) and widened, one layer at a time.  A mixture of experts
+    takes, where given, ``routes[i]`` (one (G, Tg, k) tensor per layer) as
+    sequence i's experts; ``seen`` (a dict), where given, takes the experts
+    used (``routes``: per sequence, per layer, on the host) and, of given
+    routes, the widest ``route_gap``."""
     m = dims(conf)
     emb = make_slice(conf, seed, ("embed", "table"), 0, device, dtype)
     xs = [emb[s.to(device).long()].float()[None] for s in seqs]
     del emb
+    if seen is not None and "E" in m:
+        seen["routes"] = [[] for _ in seqs]
+    if routes is not None and any(len(r) != m["L"] for r in routes):
+        raise ValueError(f"routes of {[len(r) for r in routes]} routing calls for "
+                         f"{m['L']} layers")
     for layer in range(m["L"]):
         w = layer_weights(conf, seed, layer, device, dtype)
-        xs = [block(x, w, m, mm)[0] for x in xs]
+        for i, x in enumerate(xs):
+            s = {} if seen is not None else None
+            xs[i] = block(x, w, m, mm, routes[i][layer] if routes is not None else None, s)[0]
+            if s:
+                seen["routes"][i].append(s["route"].cpu())
+                seen["route_gap"] = max(seen.get("route_gap", 0.0), s.get("route_gap", 0.0))
         del w
     fn = make_slice(conf, seed, ("final_norm", "scale"), 0, device, dtype).float()
     head = make_slice(conf, seed, ("head", "w"), 0, device, dtype).float()

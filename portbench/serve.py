@@ -27,11 +27,24 @@ those ``BENCHMARK.json`` gives it; the others go under ``extra``.
 
 ``correct``: once the program's state is freed, a sample of the finished
 requests drawn from the seed (the one with the most served tokens among
-them) is run through the plain float32 reference whole, and the widest gap
-by which a served token's reference logit lies below the reference's best
-at its position is compared with the cell's limit; every finished request
-must also hold exactly its budget of in-vocabulary tokens, and no request
-begun may fail.
+them) is run through the plain float32 reference whole (the module the
+configuration's ``reference`` names), and the widest gap by which a served
+token's reference logit lies below the reference's best at its position is
+compared with the cell's limit; every finished request must also hold
+exactly its budget of in-vocabulary tokens, and no request begun may fail.
+
+A mixture of experts is compared on the program's routing, as training is:
+before its state is freed, the program's own forward pass over each
+sampled sequence records the experts it chooses (``adapter.RouteRecorder``),
+the reference takes them, and each choice is judged against the
+reference's router (``route_gap``).  That pass is the program's routing of
+each sequence whole, as a prefill routes it; the decode steps that served
+most tokens replay a CUDA graph that no recorder sees, so their routing is
+judged only through the tokens' logits.  Calibration adds the gap on the
+reference's own routing under ``extra``.  The program applies capacity per
+call (a prompt at its admission, each decode step) and the reference over
+the whole sequence, so a configuration whose capacity lets the program
+drop pairs is refused before anything runs.
 """
 
 from __future__ import annotations
@@ -44,7 +57,6 @@ import time
 import numpy as np
 
 from portbench import adapter, common, traffic
-from portbench.reference import decoder
 
 WARM_RID = 1 << 40
 
@@ -73,8 +85,10 @@ def run(ctx) -> dict:
     warm = traffic.warmup_requests(mix, V, seed)
     spec = {r["rid"]: r for r in reqs}
 
-    model = build_model(program.model_config(conf), device=dev)
-    params = decoder.make_weights(conf, seed, dev, wdt)
+    cfg = program.model_config(conf)
+    refuse_dropping(conf, cfg)
+    model = build_model(cfg, device=dev)
+    params = common.reference(conf).make_weights(conf, seed, dev, wdt)
     e = mix["engine"]
     eng = ClusterServingEngine(model, params, num_workers=e["workers"],
                                slots_per_worker=e["slots_per_worker"], max_len=e["max_len"],
@@ -168,7 +182,11 @@ def run(ctx) -> dict:
                 and adapter.error(eng, rid) is None for rid in attempted}
         lost = [rid for rid in attempted if not done[rid] and rid not in cut]
     finally:
+        loops = adapter.loops(eng)
         eng.close()
+    adapter.wait_ended(loops)
+    picked, seqs, malformed = compared(ctx.mix, seed, V, spec, attempted, texts, done)
+    routes = program_routes(model, params, seqs, dev) if cfg.moe is not None else None
     del eng, model, params
     gc.collect()
     if dev.type == "cuda":
@@ -211,7 +229,7 @@ def run(ctx) -> dict:
     out["completions_per_s"] = sum(1 for rid in attempted if done[rid] and times[rid]
                                    and times[rid][-1] <= t_end) / (t_end - t0)
 
-    checks = check(ctx, conf, seed, dev, wdt, spec, attempted, texts, done)
+    checks = check(ctx, conf, seed, dev, wdt, spec, texts, picked, seqs, malformed, routes)
     checks["lost_requests"] = {"value": len(lost), "limit": 0}
     return {"metrics": out, "attempted": n_attempted, "failed": len(failed),
             "memory_peak_bytes": peak, "checks": checks, "record": record}
@@ -251,50 +269,123 @@ def sample(seed: int, finished: list, texts: dict, min_tokens: int, min_requests
     return picked
 
 
-def check(ctx, conf, seed, dev, wdt, spec, attempted, texts, done) -> dict:
+def refuse_dropping(conf: dict, cfg) -> None:
+    """Refuse a mixture of experts whose capacity (the program's, or the
+    configuration's that the reference takes) lets pairs be dropped: below
+    E/k an expert can overflow.  The program drops per call and the
+    reference over the whole sequence, so the two would not compute one
+    model."""
+    moe = cfg.moe
+    if moe is None:
+        return
+    for cf in (moe.capacity_factor, conf.get("capacity_factor", moe.capacity_factor)):
+        if cf * moe.top_k < moe.num_experts:
+            raise ValueError(
+                f"{conf['name']}: capacity_factor {cf} is below num_experts / top_k = "
+                f"{moe.num_experts}/{moe.top_k}; serving is compared only where no "
+                f"(token, choice) pair can be dropped")
+
+
+def compared(mix, seed, V, spec, attempted, texts, done) -> tuple:
+    """(picked, seqs, malformed): the sampled finished requests, each one's
+    prompt and served tokens but the last (int32), and the count of
+    finished requests that do not hold exactly their budget of
+    in-vocabulary tokens."""
     import torch
 
-    lim = ctx.limits
-    V = conf["vocab_size"]
     finished = [rid for rid in attempted if done[rid]]
-    malformed = sum(1 for rid in finished
-                    if len(texts[rid]) != spec[rid]["max_new"]
-                    or any(not 0 <= t < V for t in texts[rid]))
     good = [rid for rid in finished if len(texts[rid]) == spec[rid]["max_new"]
             and all(0 <= t < V for t in texts[rid])]
-    c = ctx.mix["check"]
+    c = mix["check"]
     picked = sample(seed, good, texts, c["min_tokens"], c["min_requests"], c["max_requests"])
     seqs = [torch.from_numpy(np.concatenate([spec[rid]["prompt"],
                                              np.asarray(texts[rid][:-1], np.int32)]))
             for rid in picked]
+    return picked, seqs, len(finished) - len(good)
+
+
+def program_routes(model, params, seqs, dev) -> list:
+    """The experts the program chooses for each sequence in its own
+    forward pass over it, whole: per sequence, its routing calls in order
+    (one (G, Tg, k) tensor a layer), on the host."""
+    import torch
+
+    routes = []
+    with adapter.RouteRecorder() as rec, torch.no_grad():
+        for seq in seqs:
+            model.forward(params, {"tokens": seq[None].to(dev)})
+            routes.append(rec.take())
+    return routes
+
+
+def readings(picked, spec, texts, lgs, chosen=None) -> dict:
+    """The numbers of the tokens chosen at each served position (the
+    served ones, or ``chosen``: one tensor a request) judged by ``lgs`` (one
+    (S, V) tensor a sampled request): the widest gap by which a chosen
+    token's logit lies below the best at its position (``logit_gap``), the
+    mean gap (``logit_gap_mean``), and the share of positions whose chosen
+    token is not the best (``off_argmax_share``)."""
+    import torch
+
+    gaps = []
+    for j, (rid, lg) in enumerate(zip(picked, lgs)):
+        P, n = len(spec[rid]["prompt"]), len(texts[rid])
+        rows = lg[P - 1:P - 1 + n]
+        tok = torch.tensor(texts[rid], device=lg.device) if chosen is None else chosen[j]
+        gaps.append(rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0])
+    if not gaps:
+        return {"logit_gap": 0.0, "logit_gap_mean": 0.0, "off_argmax_share": 0.0}
+    g = torch.cat(gaps).double()
+    return {"logit_gap": float(g.max()), "logit_gap_mean": float(g.mean()),
+            "off_argmax_share": float((g > 0).double().mean())}
+
+
+def check(ctx, conf, seed, dev, wdt, spec, texts, picked, seqs, malformed, routes) -> dict:
+    """The numbers the cell's limits file names, each beside its limit;
+    the others are reported under ``extra`` (``readings``).  A mixture of
+    experts is judged on the program's routing (``routes``), which adds
+    ``route_gap``.  With ``ctx.control`` (calibration only), also the same
+    tokens judged on the reference's own routing (``own_routing``, the
+    witness of why routing is followed) and the control's readings
+    (``control``): the reference with
+    float8 matrix products in the program's place, at each position the
+    token it puts first, judged by the reference (of a mixture of experts,
+    the reference on the control's routing, whose choices give the
+    control's ``route_gap``)."""
+    import torch
+
+    ref = common.reference(conf)
+    c = ctx.mix["check"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.monotonic()
-    ref = decoder.logits(conf, seed, seqs, dev, wdt)
-    gap = 0.0
-    for rid, lg in zip(picked, ref):
-        P = len(spec[rid]["prompt"])
-        served = torch.tensor(texts[rid], device=lg.device)
-        rows = lg[P - 1:P - 1 + len(served)]
-        gap = max(gap, float((rows.max(-1).values
-                              - rows.gather(-1, served[:, None])[:, 0]).max()))
-    checks = {
-        "logit_gap": {"value": gap, "limit": lim["logit_gap"]},
-        "malformed_requests": {"value": malformed, "limit": 0},
-        "compared_requests": {"value": len(picked), "limit": c["min_requests"]},
-    }
-    extra = {"compared_tokens": sum(len(texts[r]) for r in picked),
-             "reference_s": time.monotonic() - t}
+    moe = routes is not None
+    seen: dict = {}
+    lg = ref.logits(conf, seed, seqs, dev, wdt, routes=routes, seen=seen)
+    r = readings(picked, spec, texts, lg)
+    if moe:
+        r["route_gap"] = seen.get("route_gap", 0.0)
+    checks = {name: {"value": r[name], "limit": limit} for name, limit in ctx.limits.items()}
+    checks["malformed_requests"] = {"value": malformed, "limit": 0}
+    checks["compared_requests"] = {"value": len(picked), "limit": c["min_requests"]}
+    extra = {"compared_tokens": sum(len(texts[rid]) for rid in picked), "readings": r}
+    extra["reference_s"] = time.monotonic() - t
     if ctx.control:
-        ctl = decoder.logits(conf, seed, seqs, dev, wdt, mm=decoder.fp8_matmul)
-        cgap = 0.0
-        for rid, lg, cl in zip(picked, ref, ctl):
-            P = len(spec[rid]["prompt"])
-            rows = lg[P - 1:P - 1 + len(texts[rid])]
-            pick = cl[P - 1:P - 1 + len(texts[rid])].argmax(-1)
-            cgap = max(cgap, float((rows.max(-1).values
-                                    - rows.gather(-1, pick[:, None])[:, 0]).max()))
-        extra["control_logit_gap"] = cgap
+        if moe:
+            # the witness: the same tokens judged on the reference's own routing
+            extra["own_routing"] = readings(picked, spec, texts,
+                                            ref.logits(conf, seed, seqs, dev, wdt))
+        cseen: dict = {}
+        ctl = ref.logits(conf, seed, seqs, dev, wdt, mm=ref.fp8_matmul, seen=cseen)
+        chosen = [cl[len(spec[rid]["prompt"]) - 1:
+                     len(spec[rid]["prompt"]) - 1 + len(texts[rid])].argmax(-1)
+                  for rid, cl in zip(picked, ctl)]
+        del ctl
+        judge, jseen = lg, {}
+        if moe:
+            judge = ref.logits(conf, seed, seqs, dev, wdt, routes=cseen["routes"], seen=jseen)
+        extra["control"] = readings(picked, spec, texts, judge, chosen)
+        if moe:
+            extra["control"]["route_gap"] = jseen.get("route_gap", 0.0)
     ctx.extra.update(extra)
     return checks
-

@@ -103,3 +103,44 @@ def test_a_result_line_stays_json():
     assert common.correct({"compared_requests": {"value": 4, "limit": 4},
                            "lost_requests": {"value": 0, "limit": 0}})
 
+
+
+def _serve_record(conf_name, launches):
+    conf = common.load_json(f"portbench/configs/{conf_name}.json")
+    return {"conf": conf, "counters": {"grouped_matmul": launches, "decode_attention": 0},
+            "device_events": [("gmm_stream<__nv_bfloat16>", 0.0, 0.015),
+                              ("decode_kernel<bf16>", 0.015, 0.02),
+                              ("gmm_wgmma<0>", 0.02, 0.025)],
+            "spans": {"prefill_lengths": [256], "decode_lengths": [[300] * 64, [301] * 64],
+                      "decode_tokens": 128, "first_tokens": 1, "blocks": 1,
+                      "train_steps": 0}}
+
+
+def test_grouped_matmul_roofline_of_a_serving_slice():
+    read = common.reader("grouped_matmul_roofline.batch")
+    # one prefill of 256 tokens and two decode steps over 64 sequences, 16
+    # layers of 3 launches: 144 launches, each bound by its bytes: all 64
+    # experts' weights (64 x 2048 x 1024 x 2 B = 268,435,456) and each routed
+    # row's input and output (tokens x 8 rows of (2048 + 1024) x 2 B)
+    weights = 64 * 2048 * 1024 * 2
+    prefill = weights + 256 * 8 * 3072 * 2          # 281,018,368 B
+    step = weights + 64 * 8 * 3072 * 2              # 271,581,184 B
+    assert prefill == 281_018_368 and step == 271_581_184
+    # FLOPs: 2 d f a routed row, 8.59 GFLOP for the prefill: 8.7 us at peak,
+    # against 83.9 us for its bytes
+    assert common.gmm_flops(common.load_json("portbench/configs/olmoe-1b-7b.json"), 256,
+                            False) == 2 * 2048 * 1024 * 2048
+    need = 48 * (prefill + 2 * step) / 3.35e12      # 0.011809 s
+    assert read(_serve_record("olmoe-1b-7b", 144)) == pytest.approx(100 * need / 0.02)
+
+
+@pytest.mark.parametrize("conf_name,launches", [
+    ("olmoe-1b-7b", 143),             # a launch this count does not describe
+    ("internlm2-20b", 0),             # the dense served cell: no expert layer
+], ids=["launches differ", "dense"])
+def test_grouped_matmul_roofline_reads_nothing_it_cannot_count(conf_name, launches):
+    read = common.reader("grouped_matmul_roofline.batch")
+    assert read(_serve_record(conf_name, launches)) is None
+    train = _serve_record(conf_name, launches)
+    train["spans"].update(prefill_lengths=[], decode_lengths=[], train_steps=3)
+    assert read(train) is None

@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files it names: keys, names and units in the
 allowed characters, every named file present, every per-layer metric with
-its reader, and the configurations' cuts listed."""
+its reader, and the configurations' cuts listed; a configuration's
+reference module and its program's fields."""
 
 import json
 import re
@@ -97,3 +98,79 @@ def test_configuration_files_list_their_cuts(entry):
 def test_the_file_fits_its_size_limit():
     assert len((common.ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
     assert json.loads((common.ROOT / "BENCHMARK.json").read_text()) == B
+
+
+def _model_configs():
+    """The program's fields of each accepted configuration, written out as
+    the mapping gave them before a configuration could bring its own."""
+    from repro_torch.models.config import ModelConfig, MoEConfig
+
+    intern = dict(family="dense", d_model=6144, num_heads=48, num_kv_heads=8, d_ff=16384,
+                  vocab_size=92544, head_dim=None, mlp="swiglu", rope_theta=1000000.0,
+                  norm_eps=1e-05, tie_embeddings=False, moe=None, dtype="bfloat16")
+    return {
+        "internlm2-20b": ModelConfig(name="internlm2-20b", num_layers=48,
+                                     param_dtype="bfloat16", remat="none", **intern),
+        "internlm2-20b-4L": ModelConfig(name="internlm2-20b-4L", num_layers=4,
+                                        param_dtype="float32", remat="full", **intern),
+        "olmoe-1b-7b-4L": ModelConfig(
+            name="olmoe-1b-7b-4L", family="moe", num_layers=4, d_model=2048, num_heads=16,
+            num_kv_heads=16, d_ff=1024, vocab_size=50304, head_dim=None, mlp="swiglu",
+            rope_theta=10000.0, norm_eps=1e-05, tie_embeddings=False,
+            moe=MoEConfig(num_experts=64, top_k=8, d_ff_expert=1024, capacity_factor=1.25,
+                          expert_parallel=True),
+            dtype="bfloat16", param_dtype="float32", remat="full"),
+    }
+
+
+@pytest.mark.parametrize("name", ["internlm2-20b", "internlm2-20b-4L", "olmoe-1b-7b-4L"])
+def test_the_accepted_configurations_read_what_they_read(name):
+    from portbench import program
+
+    conf = common.load_json(f"portbench/configs/{name}.json")
+    assert "program" not in conf
+    assert program.model_config(conf) == _model_configs()[name]
+    ref = common.reference(conf)
+    assert ref.__file__ == str(common.HERE / "reference" / "decoder.py")
+    assert common.reference(conf) is ref
+
+
+def test_a_program_object_is_applied_over_the_mapping():
+    import dataclasses
+
+    from portbench import program
+
+    conf = common.load_json("portbench/configs/olmoe-1b-7b-4L.json")
+    conf["program"] = {"mlp": "relu2", "remat": "none",
+                       "moe": {"num_shared_experts": 1, "capacity_factor": 8.0},
+                       "ssm": {"state_dim": 128}}
+    got = program.model_config(conf)
+    want = _model_configs()["olmoe-1b-7b-4L"]
+    assert got.mlp == "relu2" and got.remat == "none" and got.ssm.state_dim == 128
+    assert got.ssm.head_dim == 64                         # the dataclass's own default
+    assert got.moe == dataclasses.replace(want.moe, num_shared_experts=1, capacity_factor=8.0)
+    assert dataclasses.replace(got, mlp="swiglu", remat="full", moe=want.moe,
+                               ssm=None) == want
+
+
+@pytest.mark.parametrize("given,named", [
+    ({"remat_grup": 2}, "program.remat_grup"),
+    ({"moe": {"capacity_factr": 8.0}}, "program.moe.capacity_factr"),
+    ({"xlstm": {"chunk": 64}}, "program.xlstm.chunk"),
+], ids=["top level", "moe", "xlstm"])
+def test_an_unknown_program_key_is_named(given, named):
+    from portbench import program
+
+    conf = common.load_json("portbench/configs/olmoe-1b-7b-4L.json")
+    conf["program"] = given
+    with pytest.raises(ValueError, match=re.escape(named)):
+        program.model_config(conf)
+
+
+def test_a_reference_without_a_function_of_the_contract_is_refused(tmp_path):
+    src = (common.HERE / "reference" / "decoder.py").read_text()
+    path = tmp_path / "no_train.py"
+    path.write_text(src + "\n\ndel train, relative_diffs\n")
+    with pytest.raises(ImportError, match="relative_diffs") as err:
+        common.reference({"reference": str(path)})
+    assert "train" in str(err.value)

@@ -23,9 +23,10 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
         "from portbench import testing, common, calibrate, run\n"
         "from portbench.reference import decoder\n"
         "for m in common.benchmark()['per_layer']: common.reader(m['name'])\n"
-        "res = testing.run_cpu(testing.tiny_conf(), testing.tiny_mix('serve'), seconds=1.0)\n"
+        "res = testing.run_cpu(testing.tiny_conf(), testing.tiny_mix('serve'),"
+        " 'internlm2-20b.chat-batch', seconds=1.0)\n"
         "res = testing.run_cpu(testing.tiny_conf(moe=True, train=True),"
-        " testing.tiny_mix('train'), seconds=0.5)\n"
+        " testing.tiny_mix('train'), 'olmoe-1b-7b.train-4k', seconds=0.5)\n"
         "print('FOUND', common.jax_modules(sys.modules), 'repro_torch' in sys.modules)\n"
     ) % (ROOT, os.path.join(ROOT, "src"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -36,10 +37,14 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    src = (common.HERE / "reference" / "decoder.py").read_text()
-    imports = [ln for ln in src.splitlines() if ln.lstrip().startswith(("import ", "from "))]
-    assert imports and all("repro" not in ln and "jax" not in ln and "portbench" not in ln
-                           for ln in imports)
+    files = {common.load_json(c["file"])["reference"] for c in common.benchmark()["configs"]}
+    assert "portbench/reference/decoder.py" in files
+    for name in files:
+        src = (common.ROOT / name).read_text()
+        imports = [ln for ln in src.splitlines()
+                   if ln.lstrip().startswith(("import ", "from "))]
+        assert imports and all("repro" not in ln and "jax" not in ln and "portbench" not in ln
+                               for ln in imports), name
 
 
 def test_a_run_without_a_card_prints_no_result():

@@ -150,7 +150,8 @@ def test_tiny_traced_runs_report_every_new_metric(kind):
         mix["profile"] = {"start_share": 0.0, "blocks": 2}
     else:
         mix["profile"] = {"after_steps": 0, "steps": 1}
-    res = testing.run_cpu(conf, mix, trace=True, seconds=2.0)
+    cell = "internlm2-20b.chat-batch" if kind == "serve" else "olmoe-1b-7b.train-4k"
+    res = testing.run_cpu(conf, mix, cell, trace=True, seconds=2.0)
     assert res["correct"]
     want = [m for m in NEW if m.endswith(".train") == (kind == "train")]
     for m in want:

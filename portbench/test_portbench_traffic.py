@@ -9,7 +9,7 @@ from portbench import traffic
 BIG = 2**33 + 12345
 
 
-@pytest.mark.parametrize("name", ["chat-batch", "chat-r80"])
+@pytest.mark.parametrize("name", ["chat-batch", "chat-batch-deep", "chat-r80"])
 def test_serving_traffic_repeats_by_seed(name):
     mix = traffic.load(name)
     a = traffic.serve_requests(mix, 92544, BIG, 30.0)
@@ -20,7 +20,7 @@ def test_serving_traffic_repeats_by_seed(name):
         assert np.array_equal(x["prompt"], y["prompt"])
 
 
-@pytest.mark.parametrize("name", ["chat-batch", "chat-r80"])
+@pytest.mark.parametrize("name", ["chat-batch", "chat-batch-deep", "chat-r80"])
 def test_seeds_share_lengths_in_another_order(name):
     mix = traffic.load(name)
     a = traffic.serve_requests(mix, 92544, 1, 30.0)
@@ -72,3 +72,24 @@ def test_every_stretch_of_the_queue_holds_the_whole_mix():
         p = np.array([len(r["prompt"]) for r in traffic.serve_requests(mix, 92544, seed, 30.0)])
         medians = [np.median(p[i:i + 64]) for i in range(0, 640, 64)]
         assert max(medians) - min(medians) < 40, medians
+
+
+def test_the_deep_backlog_is_chat_batch_deeper():
+    deep, mix = traffic.load("chat-batch-deep"), traffic.load("chat-batch")
+    assert deep["requests"] == 4 * mix["requests"]
+    assert deep["check"]["min_tokens"] > mix["check"]["min_tokens"]
+    assert deep["engine"]["slots_per_worker"] == 10 * mix["engine"]["slots_per_worker"]
+    # ten times the slots take longer to fill, and a loop iteration is
+    # longer, so the window opens later and the traced slice starts sooner
+    assert deep["fill_s"] > mix["fill_s"]
+    assert deep["profile"]["blocks"] == mix["profile"]["blocks"]
+    same = ("requests", "why", "check", "engine", "fill_s", "profile")
+    assert {k: v for k, v in deep.items() if k not in same} == \
+        {k: v for k, v in mix.items() if k not in same}
+    assert {k: v for k, v in deep["engine"].items() if k != "slots_per_worker"} == \
+        {k: v for k, v in mix["engine"].items() if k != "slots_per_worker"}
+    reqs = traffic.serve_requests(deep, 50304, BIG, 51.0)
+    p = np.array([len(r["prompt"]) for r in reqs])
+    o = np.array([r["max_new"] for r in reqs])
+    assert len(reqs) == 4000 and p.min() >= 64 and p.max() <= 448 and (p + o).max() <= 512
+    assert abs(np.median(p) - 256) <= 2 and abs(np.median(o) - 48) <= 2

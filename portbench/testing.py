@@ -10,20 +10,13 @@ import time
 from portbench import common, traffic
 
 
-def cell_of(mix: dict, conf: dict) -> str:
-    """The cell whose metrics and limits a tiny run of ``mix`` on ``conf``
-    takes."""
-    if mix["kind"] == "train":
-        return "olmoe-1b-7b.train-4k" if "num_experts" in conf else "internlm2-20b.train-4k"
-    return "internlm2-20b.chat-batch"
-
-
 def tiny_conf(moe: bool = False, dtype: str = "float32", train: bool = False) -> dict:
     conf = {"name": "tiny", "hidden_size": 64, "intermediate_size": 96,
             "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
             "vocab_size": 256, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
             "tie_word_embeddings": False, "param_dtype": "float32" if train else dtype,
-            "compute_dtype": dtype, "remat": "full" if train else "none"}
+            "compute_dtype": dtype, "remat": "full" if train else "none",
+            "reference": "portbench/reference/decoder.py"}
     if moe:
         conf.update(num_experts=8, num_experts_per_tok=2, capacity_factor=1.25,
                     tokens_per_group=4096)   # the program's fixed group
@@ -52,16 +45,16 @@ def tiny_mix(kind: str) -> dict:
     return mix
 
 
-def run_cpu(conf: dict, mix: dict, *, limits: dict | None = None, seed: int = 2**33 + 5,
-            seconds: float = 2.0, trace: bool = False, control: bool = False) -> dict:
-    """One run of the drivers on the CPU, the chip's look skipped; the
-    limits default to those of :func:`cell_of` the mix and ``conf``."""
+def run_cpu(conf: dict, mix: dict, cell: str, *, limits: dict | None = None,
+            seed: int = 2**33 + 5, seconds: float = 2.0, trace: bool = False,
+            control: bool = False) -> dict:
+    """One run of the drivers on the CPU, the chip's look skipped, as the
+    cell named ``cell`` (its metrics and, by default, its limits)."""
     from portbench import run
 
-    workload = cell_of(mix, conf)
     if limits is None:
-        limits = common.limits(workload)
-    ctx = run.Context(workload=workload, conf=conf, mix=mix, seed=seed, seconds=seconds,
+        limits = common.limits(cell)
+    ctx = run.Context(workload=cell, conf=conf, mix=mix, seed=seed, seconds=seconds,
                       trace=trace, device="cpu", limits=limits, t_start=time.monotonic(),
                       control=control)
     return run.execute(common.benchmark(), ctx)

@@ -67,9 +67,11 @@ class Slice:
 
     def stop(self):
         self._sync()
-        self.t1 = time.monotonic()
+        t1 = time.monotonic()
         self.prof.stop()
         self.after = program.counters(self.sched, self.loops)
+        # last: another thread takes the slice as done once ``t1`` is set
+        self.t1 = t1
 
     @property
     def on(self) -> bool:

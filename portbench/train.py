@@ -32,8 +32,7 @@ import math
 import statistics
 import time
 
-from portbench import traffic
-from portbench.reference import decoder
+from portbench import common, traffic
 
 
 def _sync(device):
@@ -78,11 +77,12 @@ def _program(ctx, dev):
 
     conf, mix, seed, seconds = ctx.conf, ctx.mix, ctx.seed, ctx.seconds
     opt = mix["optimizer"]
-    paths = decoder.leaf_paths(conf)
+    plain = common.reference(conf)
+    paths = plain.leaf_paths(conf)
     trainer = Trainer(program.model_config(conf), adamw.AdamWConfig(**opt),
                       global_batch=mix["batch"], seq_len=mix["seq_len"], device=dev)
     trainer.data = traffic.TrainBatches(mix, conf["vocab_size"], seed)
-    trainer.params = decoder.make_weights(conf, seed, dev, getattr(torch, conf["param_dtype"]))
+    trainer.params = plain.make_weights(conf, seed, dev, getattr(torch, conf["param_dtype"]))
     trainer.opt_state = adamw.init(trainer.params)
     trainer.step = 0
     reg = HandlerRegistry()
@@ -115,7 +115,7 @@ def _program(ctx, dev):
                                                        for k in ctx.limits)
                                  else None)
         losses = [h["loss"] for h in trainer.metrics_history]
-        change_norms = [decoder.change_norm(conf, seed, p, _walk(trainer.params, p))
+        change_norms = [plain.change_norm(conf, seed, p, _walk(trainer.params, p))
                         for p in paths]
         if ctx.trace:
             trace.prime(dev)
@@ -167,7 +167,7 @@ def forward_routes(calls: list, layers: int) -> list:
     return calls[:layers]
 
 
-def readings(prog: dict, ref: dict, paths=None, device=None) -> dict:
+def readings(prog: dict, ref: dict, paths, device, relative_diffs) -> dict:
     """The numbers compared, of a run ``prog`` against ``ref``: the largest
     relative gap of a step's loss; for the first gradient and for the
     change the worst leaf's gap of norms (``*_gap``) and the median leaf's
@@ -194,13 +194,12 @@ def readings(prog: dict, ref: dict, paths=None, device=None) -> dict:
         out["route_gap"] = ref["route_gap"]
     diff = None
     if "first_grads" in prog and "first_grads" in ref:
-        diff = decoder.relative_diffs(prog["first_grads"], ref["first_grads"], device)
+        diff = relative_diffs(prog["first_grads"], ref["first_grads"], device)
         out["grad_diff_median"] = statistics.median(diff)
         out["grad_diff_least"] = min(diff)
         out["grad_diff"] = max(diff)
-    if paths is not None:
-        out["by_leaf"] = {".".join(p): [grad[i], change.get(i), diff[i] if diff else None]
-                          for i, p in enumerate(paths)}
+    out["by_leaf"] = {".".join(p): [grad[i], change.get(i), diff[i] if diff else None]
+                      for i, p in enumerate(paths)}
     return out
 
 
@@ -220,8 +219,8 @@ def reference(conf, seed, dev, mix, mm=None, loss_fn=None, keep_grads=False,
         kw["mm"] = mm
     if loss_fn is not None:
         kw["loss_fn"] = loss_fn
-    return decoder.train(conf, seed, batches, mix["optimizer"], dev, keep_grads=keep_grads,
-                         routes=routes, **kw)
+    return common.reference(conf).train(conf, seed, batches, mix["optimizer"], dev,
+                                        keep_grads=keep_grads, routes=routes, **kw)
 
 
 def check(ctx, conf, seed, dev, mix, prog) -> dict:
@@ -236,23 +235,28 @@ def check(ctx, conf, seed, dev, mix, prog) -> dict:
     keep = "first_grads" in prog
     routes = prog.get("routes")
     ref = reference(conf, seed, dev, mix, keep_grads=keep, routes=routes)
-    paths = decoder.leaf_paths(conf)
-    r = readings(prog, ref, paths, dev)
+    plain = common.reference(conf)
+    paths = plain.leaf_paths(conf)
+
+    def readings_of(got, want):
+        return readings(got, want, paths, dev, plain.relative_diffs)
+
+    r = readings_of(prog, ref)
     ctx.extra.update(reference_s=time.monotonic() - t, readings=r,
                      losses=prog["losses"], reference_losses=ref["losses"])
     if ctx.control:
         import torch
 
         if routes is not None:
-            ctx.extra["own_routing"] = readings(
-                prog, reference(conf, seed, dev, mix, keep_grads=keep), paths, dev)
-        ctl = reference(conf, seed, dev, mix, keep_grads=keep, mm=decoder.fp8_matmul)
+            ctx.extra["own_routing"] = readings_of(
+                prog, reference(conf, seed, dev, mix, keep_grads=keep))
+        ctl = reference(conf, seed, dev, mix, keep_grads=keep, mm=plain.fp8_matmul)
         ctl_ref = (reference(conf, seed, dev, mix, keep_grads=keep, routes=ctl["routes"])
                    if routes is not None else ref)
-        ctx.extra["control"] = readings(ctl, ctl_ref, paths, dev)
+        ctx.extra["control"] = readings_of(ctl, ctl_ref)
         del ctl, ctl_ref
-        half = readings(reference(conf, seed, dev, mix, keep_grads=keep,
-                                  loss_fn=half_batch_loss), ref, paths, dev)
+        half = readings_of(reference(conf, seed, dev, mix, keep_grads=keep,
+                                     loss_fn=half_batch_loss), ref)
         half.pop("route_gap", None)   # the half batch routes rows the reference never saw
         ctx.extra["half_batch"] = half
         if dev.type == "cuda":
@@ -264,4 +268,4 @@ def half_batch_loss(params, batch, conf, mm, **_):
     """A fault planted in the reference put in the program's place: the
     loss of the first half of the rows only, their mean."""
     half = {k: v[: max(1, v.shape[0] // 2)] for k, v in batch.items()}
-    return decoder.train_loss(params, half, conf, mm)
+    return common.reference(conf).train_loss(params, half, conf, mm)
